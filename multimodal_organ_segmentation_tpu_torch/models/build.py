@@ -1,0 +1,86 @@
+"""Model factory (port of the JAX package's ``models/build.py`` for
+``swin_unetr``; the other models come with their slice).
+
+``build_model`` builds on the CUDA device unless the caller names another
+device, and raises when there is no CUDA device rather than carrying on on
+the CPU. Weights are drawn from an explicit ``torch.Generator`` with flax's
+default initialisers, then cast to the compute dtype of
+``hardware.mixed_precision``.
+"""
+
+from __future__ import annotations
+
+from typing import Mapping, Optional, Union
+
+import torch
+from torch import nn
+
+from multimodal_organ_segmentation_tpu_torch.models.swin_unetr import (
+    SwinUNETR,
+    WindowAttention,
+    build_swin_unetr,
+)
+from multimodal_organ_segmentation_tpu_torch.utils.config import ConfigNode
+
+_LECUN_TRUNC = 0.87962566103423978  # std of a unit normal truncated to [-2, 2]
+
+
+def compute_dtype(config) -> torch.dtype:
+    mp = str(config.get("hardware.mixed_precision", "bf16")).lower()
+    if mp in ("bf16", "bfloat16", "true", "mixed"):
+        return torch.bfloat16
+    return torch.float32
+
+
+def init_weights(model: nn.Module, generator: torch.Generator) -> None:
+    """flax's defaults: truncated lecun-normal kernels, zero biases, unit
+    norms, and a 0.02 truncated normal for the relative-position tables."""
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, (nn.Linear, nn.Conv3d, nn.ConvTranspose3d)):
+                w = m.weight
+                fan_in = w.shape[0] * w[0, 0].numel() if isinstance(m, nn.ConvTranspose3d) else w[0].numel()
+                std = fan_in**-0.5 / _LECUN_TRUNC
+                nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std, generator=generator)
+                if m.bias is not None:
+                    m.bias.zero_()
+            elif isinstance(m, WindowAttention):
+                nn.init.trunc_normal_(m.rel_pos_bias, std=0.02, a=-0.04, b=0.04, generator=generator)
+
+
+def cast_to_compute_dtype(model: SwinUNETR, dtype: torch.dtype) -> None:
+    """Weights in the compute dtype, as flax casts its f32 params per op.
+    The output conv and the relative-position tables stay f32: the JAX
+    model's logits are f32, and kernel A takes an f32 bias."""
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if not (name.startswith("out_conv.") or name.endswith("rel_pos_bias")):
+                p.data = p.data.to(dtype)
+
+
+def build_model(
+    config: Union[ConfigNode, Mapping],
+    device: Optional[Union[str, torch.device]] = None,
+    generator: Optional[torch.Generator] = None,
+) -> SwinUNETR:
+    """Build the configured model in eval mode on ``device`` (CUDA when
+    None). ``generator`` (a CPU generator) draws the initial weights; by
+    default one seeded with ``experiment.seed``."""
+    config = config if isinstance(config, ConfigNode) else ConfigNode(dict(config))
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "build_model: no CUDA device; pass device='cpu' to run the port on the CPU"
+            )
+        device = "cuda"
+    name = str(config.get("model.name", "swin_unetr")).lower()
+    if name != "swin_unetr":
+        raise NotImplementedError(f"model {name!r} is not ported to the PyTorch package yet")
+    dtype = compute_dtype(config)
+    model = build_swin_unetr(config, dtype)
+    if generator is None:
+        generator = torch.Generator().manual_seed(int(config.get("experiment.seed", 0)))
+    init_weights(model, generator)
+    model.to(device)
+    cast_to_compute_dtype(model, dtype)
+    return model.eval()
