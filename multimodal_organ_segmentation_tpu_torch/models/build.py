@@ -4,8 +4,9 @@
 ``build_model`` builds on the CUDA device unless the caller names another
 device, and raises when there is no CUDA device rather than carrying on on
 the CPU. Weights are drawn from an explicit ``torch.Generator`` with flax's
-default initialisers, then cast to the compute dtype of
-``hardware.mixed_precision``.
+default initialisers. For serving they are then stored in the compute dtype
+of ``hardware.mixed_precision``; for training (``train=True``) they stay f32
+master weights and every op casts them to the compute dtype, as flax does.
 """
 
 from __future__ import annotations
@@ -49,7 +50,8 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
 
 
 def cast_to_compute_dtype(model: SwinUNETR, dtype: torch.dtype) -> None:
-    """Weights in the compute dtype, as flax casts its f32 params per op.
+    """Store the weights in the compute dtype (the serving choice: flax
+    casts its f32 params per op, which gives the same values).
     The output conv and the relative-position tables stay f32: the JAX
     model's logits are f32, and kernel A takes an f32 bias."""
     with torch.no_grad():
@@ -62,10 +64,15 @@ def build_model(
     config: Union[ConfigNode, Mapping],
     device: Optional[Union[str, torch.device]] = None,
     generator: Optional[torch.Generator] = None,
+    train: bool = False,
 ) -> SwinUNETR:
-    """Build the configured model in eval mode on ``device`` (CUDA when
-    None). ``generator`` (a CPU generator) draws the initial weights; by
-    default one seeded with ``experiment.seed``."""
+    """Build the configured model on ``device`` (CUDA when None).
+    ``generator`` (a CPU generator) draws the initial weights; by default one
+    seeded with ``experiment.seed``. ``train=False`` returns the serving
+    model: eval mode, weights stored in the compute dtype. ``train=True``
+    returns the training model: train mode, f32 master weights that each op
+    casts to the compute dtype (``freeze_for_inference`` of the trainer turns
+    it into the serving model)."""
     config = config if isinstance(config, ConfigNode) else ConfigNode(dict(config))
     if device is None:
         if not torch.cuda.is_available():
@@ -82,5 +89,7 @@ def build_model(
         generator = torch.Generator().manual_seed(int(config.get("experiment.seed", 0)))
     init_weights(model, generator)
     model.to(device)
+    if train:
+        return model.train()
     cast_to_compute_dtype(model, dtype)
     return model.eval()

@@ -1,10 +1,12 @@
-"""Carry the JAX package's SwinUNETR weights into the port.
+"""Carry the JAX package's SwinUNETR weights into the port, and back.
 
 ``swin_unetr_params_from_jax`` takes the native flax params tree, as nested
 dicts of numpy arrays (``jax.device_get`` of the tree, or the tree itself),
 and returns the port's ``state_dict``. It takes both the unrolled tree and
 the ``scan_blocks`` tree, whose ``stage{s}/blocks/...`` leaves are stacked on
-a leading depth axis.
+a leading depth axis. ``swin_unetr_params_to_jax`` is the inverse: a port
+``state_dict`` back to a numpy params tree in either layout, so that both
+packages can be stepped from one init and their updated weights compared.
 
 Layouts (as the JAX package's ``models/torch_export.py`` states them); the
 spatial axes (H, W, D) keep their order in torch's three spatial slots:
@@ -21,7 +23,7 @@ spatial axes (H, W, D) keep their order in torch's three spatial slots:
 from __future__ import annotations
 
 import re
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, List, Mapping
 
 import numpy as np
 import torch
@@ -136,3 +138,100 @@ def swin_unetr_params_from_jax(params: Tree) -> Dict[str, torch.Tensor]:
         else:
             raise KeyError(f"unexpected SwinUNETR parameter group {key!r}")
     return sd
+
+
+# ---------------------------------------------------------------------------
+# the other direction: the port's state_dict → a flax params tree (numpy)
+# ---------------------------------------------------------------------------
+
+def _np(t) -> np.ndarray:
+    return t.detach().to(torch.float32).cpu().numpy()
+
+
+def _conv_to_jax(sd: Mapping[str, torch.Tensor], prefix: str) -> Dict[str, np.ndarray]:
+    return {"kernel": np.transpose(_np(sd[f"{prefix}.weight"]), (2, 3, 4, 1, 0)),
+            "bias": _np(sd[f"{prefix}.bias"])}
+
+
+def _dense_to_jax(sd: Mapping[str, torch.Tensor], prefix: str, conv1: bool = False) -> Dict[str, np.ndarray]:
+    kernel = _np(sd[f"{prefix}.weight"]).T
+    node = {"kernel": kernel[None, None, None] if conv1 else kernel}
+    if f"{prefix}.bias" in sd:
+        node["bias"] = _np(sd[f"{prefix}.bias"])
+    return node
+
+
+def _layer_norm_to_jax(sd: Mapping[str, torch.Tensor], prefix: str) -> Dict[str, np.ndarray]:
+    return {"scale": _np(sd[f"{prefix}.weight"]), "bias": _np(sd[f"{prefix}.bias"])}
+
+
+def _swin_block_to_jax(sd: Mapping[str, torch.Tensor], prefix: str) -> Dict[str, Any]:
+    return {
+        "attn": {"qkv": _dense_to_jax(sd, f"{prefix}.attn.qkv"),
+                 "proj": _dense_to_jax(sd, f"{prefix}.attn.proj"),
+                 "rel_pos_bias": _np(sd[f"{prefix}.attn.rel_pos_bias"])},
+        "norm1": _layer_norm_to_jax(sd, f"{prefix}.norm1"),
+        "norm2": _layer_norm_to_jax(sd, f"{prefix}.norm2"),
+        "mlp_fc1": _dense_to_jax(sd, f"{prefix}.mlp_fc1"),
+        "mlp_fc2": _dense_to_jax(sd, f"{prefix}.mlp_fc2"),
+    }
+
+
+def _res_block_to_jax(sd: Mapping[str, torch.Tensor], prefix: str) -> Dict[str, Any]:
+    node: Dict[str, Any] = {}
+    for i in range(3):
+        if f"{prefix}.conv{i + 1}.weight" in sd:
+            node[f"Conv_{i}"] = _conv_to_jax(sd, f"{prefix}.conv{i + 1}")
+        if f"{prefix}.norm{i + 1}.weight" in sd:
+            node[f"Norm3D_{i}"] = {"GroupNorm_0": {"scale": _np(sd[f"{prefix}.norm{i + 1}.weight"]),
+                                                   "bias": _np(sd[f"{prefix}.norm{i + 1}.bias"])}}
+    return node
+
+
+def _stack(nodes: List[Any]) -> Any:
+    if isinstance(nodes[0], Mapping):
+        return {k: _stack([n[k] for n in nodes]) for k in nodes[0]}
+    return np.stack(nodes, axis=0)
+
+
+def swin_unetr_params_to_jax(state: Mapping[str, torch.Tensor],
+                             scan_blocks: bool = False) -> Dict[str, Any]:
+    """The port's ``SwinUNETR`` state_dict → the native flax params tree as
+    nested dicts of f32 numpy arrays: unrolled ``stage{s}_block{b}`` groups,
+    or with ``scan_blocks`` each stage's blocks stacked on a leading depth
+    axis under ``stage{s}/blocks``. The inverse of
+    :func:`swin_unetr_params_from_jax`."""
+    groups = sorted({key.split(".")[0] for key in state})
+    params: Dict[str, Any] = {}
+    blocks: Dict[int, Dict[int, Any]] = {}
+    for key in groups:
+        block = re.fullmatch(r"stage(\d+)_block(\d+)", key)
+        if key in ("patch_embed", "aux_embed", "out_conv") or key.startswith("aux_down"):
+            params[key] = _conv_to_jax(state, key)
+        elif block:
+            blocks.setdefault(int(block.group(1)), {})[int(block.group(2))] = _swin_block_to_jax(state, key)
+        elif key.startswith("merge"):
+            params[key] = {"LayerNorm_0": _layer_norm_to_jax(state, f"{key}.norm"),
+                           "Dense_0": _dense_to_jax(state, f"{key}.reduction")}
+        elif key.startswith("xfuse"):
+            params[key] = {proj: _dense_to_jax(state, f"{key}.{proj}", conv1=True)
+                           for proj in ("q_proj", "k_proj", "v_proj", "out_proj")}
+        elif re.fullmatch(r"encoder\d+", key):
+            params[key] = _res_block_to_jax(state, key)
+        elif re.fullmatch(r"decoder\d+", key):
+            kernel = np.transpose(_np(state[f"{key}.transp_conv.weight"]), (2, 3, 4, 0, 1))
+            params[key] = {
+                "ConvTranspose_0": {"kernel": np.ascontiguousarray(kernel[::-1, ::-1, ::-1]),
+                                    "bias": _np(state[f"{key}.transp_conv.bias"])},
+                "_UnetrResBlock_0": _res_block_to_jax(state, f"{key}.res"),
+            }
+        else:
+            raise KeyError(f"unexpected SwinUNETR state group {key!r}")
+    for stage, by_index in blocks.items():
+        ordered = [by_index[i] for i in sorted(by_index)]
+        if scan_blocks:
+            params[f"stage{stage}"] = {"blocks": _stack(ordered)}
+        else:
+            for i, node in enumerate(ordered):
+                params[f"stage{stage}_block{i}"] = node
+    return params

@@ -13,7 +13,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from multimodal_organ_segmentation_tpu_torch.models.layers import instance_norm
+from multimodal_organ_segmentation_tpu_torch.models.layers import Linear, instance_norm
 from multimodal_organ_segmentation_tpu_torch.ops.attention import multi_head_attention
 
 
@@ -22,7 +22,7 @@ class CrossAttentionFusion(nn.Module):
     modality, key/value from the other; residual + instance norm.
 
     The q/k/v/out projections are the JAX package's 1x1x1 convs, held as
-    ``nn.Linear`` over the channel axis. Tokens go through
+    ``Linear`` over the channel axis. Tokens go through
     ``multi_head_attention``: kernel B on the card, the blockwise plain
     version on the CPU or when ``use_kernel`` is False (``set_use_kernels``).
     """
@@ -35,10 +35,10 @@ class CrossAttentionFusion(nn.Module):
         self.num_heads = num_heads
         self.kv_block = kv_block
         self.use_kernel = True
-        self.q_proj = nn.Linear(channels, channels)
-        self.k_proj = nn.Linear(channels, channels)
-        self.v_proj = nn.Linear(channels, channels)
-        self.out_proj = nn.Linear(channels, channels)
+        self.q_proj = Linear(channels, channels)
+        self.k_proj = Linear(channels, channels)
+        self.v_proj = Linear(channels, channels)
+        self.out_proj = Linear(channels, channels)
         self.dropout = nn.Dropout(dropout)
 
     def forward(self, query_features: torch.Tensor, key_value_features: torch.Tensor) -> torch.Tensor:

@@ -1,15 +1,52 @@
-"""Shared normalisation layer (port of the JAX package's ``models/layers.py``
-``Norm3D``). Inputs are channels-first ``[B, C, H, W, D]`` (any memory
-format). The rest of ``layers.py`` comes with the UNet3D port.
+"""Shared layers: the normalisation dispatcher (port of the JAX package's
+``models/layers.py`` ``Norm3D``; inputs are channels-first ``[B, C, H, W, D]``
+in any memory format) and the parameter-casting layers. The rest of
+``layers.py`` comes with the UNet3D port.
+
+Flax keeps f32 parameters and casts them to the module's compute dtype at
+each op. ``Linear``, ``Conv3d``, ``ConvTranspose3d`` and ``LayerNorm`` here do
+the same: each casts its parameters to the input's dtype in ``forward``. With
+f32 master weights (training) a bf16 input computes in bf16 and the gradient
+flows back to the f32 parameter through the cast; with weights already stored
+in the compute dtype (serving) the cast is a no-op.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 NORMS = ("instance", "group", "batch", "none")
 EPS = 1e-5
+
+
+def _as(p: Optional[torch.Tensor], x: torch.Tensor) -> Optional[torch.Tensor]:
+    return None if p is None else p.to(x.dtype)
+
+
+class Linear(nn.Linear):
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x, _as(self.weight, x), _as(self.bias, x))
+
+
+class LayerNorm(nn.LayerNorm):
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.layer_norm(x, self.normalized_shape, _as(self.weight, x), _as(self.bias, x),
+                            self.eps)
+
+
+class Conv3d(nn.Conv3d):
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._conv_forward(x, _as(self.weight, x), _as(self.bias, x))
+
+
+class ConvTranspose3d(nn.ConvTranspose3d):
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.conv_transpose3d(x, _as(self.weight, x), _as(self.bias, x), self.stride,
+                                  self.padding, self.output_padding, self.groups, self.dilation)
 
 
 def instance_norm(x: torch.Tensor) -> torch.Tensor:
@@ -47,7 +84,7 @@ class Norm3D(nn.Module):
         if self.norm == "instance":
             return instance_norm(x)
         if self.norm == "group":
-            return torch.group_norm(x, 8, self.weight, self.bias, EPS)
+            return torch.group_norm(x, 8, _as(self.weight, x), _as(self.bias, x), EPS)
         if self.norm == "batch":
             return self.bn(x)
         return x

@@ -32,9 +32,16 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from multimodal_organ_segmentation_tpu_torch.models.fusion import CrossAttentionFusion
-from multimodal_organ_segmentation_tpu_torch.models.layers import Norm3D
+from multimodal_organ_segmentation_tpu_torch.models.layers import (
+    Conv3d,
+    ConvTranspose3d,
+    LayerNorm,
+    Linear,
+    Norm3D,
+)
 from multimodal_organ_segmentation_tpu_torch.ops.window_attention import window_mha
 
 Window = Tuple[int, int, int]
@@ -128,7 +135,8 @@ class WindowAttention(nn.Module):
     """Multi-head self attention within windows + relative position bias.
 
     On a CUDA tensor with ``attn_drop == 0`` and ``use_kernel`` True,
-    kernel A computes softmax(q·kᵀ + bias + mask)·v. Otherwise the dense
+    kernel A computes softmax(q·kᵀ + bias + mask)·v, in training as in
+    serving (``window_mha`` is differentiable). Otherwise the dense
     path runs, with the JAX package's precision rule: f32 inputs stay f32
     throughout; for bf16, the scores, bias, mask and softmax are bf16 and
     the matmuls accumulate in f32.
@@ -141,8 +149,8 @@ class WindowAttention(nn.Module):
         self.window = tuple(window)
         self.attn_drop = attn_drop
         self.use_kernel = True
-        self.qkv = nn.Linear(dim, 3 * dim)
-        self.proj = nn.Linear(dim, dim)
+        self.qkv = Linear(dim, 3 * dim)
+        self.proj = Linear(dim, dim)
         wh, ww, wd = self.window
         table = (2 * wh - 1) * (2 * ww - 1) * (2 * wd - 1)
         self.rel_pos_bias = nn.Parameter(torch.zeros(table, num_heads))
@@ -163,6 +171,8 @@ class WindowAttention(nn.Module):
         q, k, v = qkv.unbind(2)
         bias = self.bias(n)
 
+        # attention dropout acts on the probabilities, which the kernel never
+        # writes out: a module built with it takes the dense path
         if self.use_kernel and x.device.type == "cuda" and self.attn_drop == 0.0:
             nw = mask.shape[0] if mask is not None else 1
             out = window_mha(q, k, v, bias, mask, nw)
@@ -199,11 +209,11 @@ class SwinBlock(nn.Module):
         self.window = _clamped_window(window, grid)
         self.grid = tuple(grid)
         self.shift = _shift_for(self.window, grid) if shift else (0, 0, 0)
-        self.norm1 = nn.LayerNorm(dim, eps=LN_EPS)
+        self.norm1 = LayerNorm(dim, eps=LN_EPS)
         self.attn = WindowAttention(dim, num_heads, self.window, attn_drop)
-        self.norm2 = nn.LayerNorm(dim, eps=LN_EPS)
-        self.mlp_fc1 = nn.Linear(dim, int(dim * mlp_ratio))
-        self.mlp_fc2 = nn.Linear(int(dim * mlp_ratio), dim)
+        self.norm2 = LayerNorm(dim, eps=LN_EPS)
+        self.mlp_fc1 = Linear(dim, int(dim * mlp_ratio))
+        self.mlp_fc2 = Linear(int(dim * mlp_ratio), dim)
         self.drop = nn.Dropout(drop)
         self._mask_key = None
         self._mask = None
@@ -252,8 +262,8 @@ class PatchMerging(nn.Module):
 
     def __init__(self, dim: int):
         super().__init__()
-        self.norm = nn.LayerNorm(8 * dim, eps=LN_EPS)
-        self.reduction = nn.Linear(8 * dim, 2 * dim, bias=False)
+        self.norm = LayerNorm(8 * dim, eps=LN_EPS)
+        self.reduction = Linear(8 * dim, 2 * dim, bias=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, h, w, d, c = x.shape
@@ -272,13 +282,13 @@ class UnetrResBlock(nn.Module):
 
     def __init__(self, in_channels: int, features: int, norm: str = "instance"):
         super().__init__()
-        self.conv1 = nn.Conv3d(in_channels, features, 3, padding=1)
+        self.conv1 = Conv3d(in_channels, features, 3, padding=1)
         self.norm1 = Norm3D(norm, features)
-        self.conv2 = nn.Conv3d(features, features, 3, padding=1)
+        self.conv2 = Conv3d(features, features, 3, padding=1)
         self.norm2 = Norm3D(norm, features)
         self.conv3 = self.norm3 = None
         if in_channels != features:
-            self.conv3 = nn.Conv3d(in_channels, features, 1)
+            self.conv3 = Conv3d(in_channels, features, 1)
             self.norm3 = Norm3D(norm, features)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -293,7 +303,7 @@ class UnetrUpBlock(nn.Module):
 
     def __init__(self, in_channels: int, features: int, norm: str = "instance"):
         super().__init__()
-        self.transp_conv = nn.ConvTranspose3d(in_channels, features, 2, stride=2)
+        self.transp_conv = ConvTranspose3d(in_channels, features, 2, stride=2)
         self.res = UnetrResBlock(2 * features, features, norm)
 
     def forward(self, x: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
@@ -321,7 +331,10 @@ class SwinUNETR(nn.Module):
     ``modality_fusion="cross_attention"`` (and at least 2 input channels)
     channels ``[1:]`` feed a strided-conv pyramid whose features the Swin
     tokens cross-attend to after the patch merges listed in
-    ``fusion_stages``.
+    ``fusion_stages``. ``use_remat`` (``parallel.remat``) recomputes each Swin
+    block in the backward pass instead of keeping its activations, in
+    training mode only. ``dtype`` is the compute dtype: parameters may stay
+    f32 (training) and are cast per op.
     """
 
     def __init__(
@@ -339,6 +352,7 @@ class SwinUNETR(nn.Module):
         dtype: torch.dtype = torch.float32,
         modality_fusion: Optional[str] = None,
         fusion_stages: Sequence[int] = (0, 1, 2, 3),
+        use_remat: bool = False,
     ):
         super().__init__()
         if any(s % 32 for s in img_size):
@@ -348,13 +362,14 @@ class SwinUNETR(nn.Module):
         self.img_size = tuple(int(s) for s in img_size)
         self.feature_size = fs
         self.dtype = dtype
+        self.use_remat = use_remat
         self.fusion_stages = tuple(fusion_stages)
         self.xfuse = modality_fusion == "cross_attention" and in_channels >= 2
         dims = [fs, fs * 2, fs * 4, fs * 8]
 
-        self.patch_embed = nn.Conv3d(in_channels, fs, 2, stride=2)
+        self.patch_embed = Conv3d(in_channels, fs, 2, stride=2)
         if self.xfuse:
-            self.aux_embed = nn.Conv3d(in_channels - 1, fs, 2, stride=2)
+            self.aux_embed = Conv3d(in_channels - 1, fs, 2, stride=2)
         grid = tuple(s // 2 for s in self.img_size)
         aux_ch = fs
         for stage in range(4):
@@ -366,7 +381,7 @@ class SwinUNETR(nn.Module):
             self.add_module(f"merge{stage}", PatchMerging(dims[stage]))
             grid = tuple((g + 1) // 2 for g in grid)
             if self.xfuse:
-                self.add_module(f"aux_down{stage}", nn.Conv3d(aux_ch, 2 * dims[stage], 2, stride=2))
+                self.add_module(f"aux_down{stage}", Conv3d(aux_ch, 2 * dims[stage], 2, stride=2))
                 aux_ch = 2 * dims[stage]
                 if stage in self.fusion_stages:
                     c = 2 * dims[stage]
@@ -386,7 +401,7 @@ class SwinUNETR(nn.Module):
         self.decoder3 = UnetrUpBlock(fs * 4, fs * 2, norm)
         self.decoder2 = UnetrUpBlock(fs * 2, fs, norm)
         self.decoder1 = UnetrUpBlock(fs, fs, norm)
-        self.out_conv = nn.Conv3d(fs, out_channels, 1)
+        self.out_conv = Conv3d(fs, out_channels, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if tuple(x.shape[1:4]) != self.img_size or x.shape[-1] != self.in_channels:
@@ -401,7 +416,13 @@ class SwinUNETR(nn.Module):
             aux = F.gelu(_conv_cl(self.aux_embed, x[..., 1:]))
         for stage in range(4):
             for bi in range(self.depths[stage]):
-                y = getattr(self, f"stage{stage}_block{bi}")(y)
+                block = getattr(self, f"stage{stage}_block{bi}")
+                if self.use_remat and self.training and torch.is_grad_enabled():
+                    # remat: keep the block's input only and run its forward
+                    # again in the backward pass (``nn.remat`` in flax)
+                    y = checkpoint(block, y, use_reentrant=False)
+                else:
+                    y = block(y)
             hidden.append(y)  # tap pre-merge (native wiring)
             y = getattr(self, f"merge{stage}")(y)
             if self.xfuse:
@@ -425,7 +446,7 @@ class SwinUNETR(nn.Module):
         d2 = self.decoder3(d3, enc2)
         d1 = self.decoder2(d2, enc1)
         d0 = self.decoder1(d1, enc0)
-        logits = F.conv3d(d0.float(), self.out_conv.weight.float(), self.out_conv.bias.float())
+        logits = self.out_conv(d0.float())  # f32 logits, as the JAX model's
         return logits.permute(0, 2, 3, 4, 1)
 
 
@@ -465,6 +486,7 @@ def build_swin_unetr(config, dtype: torch.dtype = torch.float32) -> SwinUNETR:
         window_size=tuple(backbone.get("window_size", [7, 7, 7])),
         drop_rate=float(config.get("model.head.dropout", 0.0) or 0.0),
         dtype=dtype,
+        use_remat=bool(config.get("parallel.remat", False)),
         modality_fusion=modality_fusion,
         # stages: [] is a legitimate "no per-stage fusion" request — only
         # an ABSENT key falls back to all stages

@@ -25,9 +25,10 @@ def dense_attention(
 ) -> torch.Tensor:
     """Reference dense softmax attention."""
     scale = scale if scale is not None else q.shape[-1] ** -0.5
-    scores = torch.einsum("bnhd,bmhd->bhnm", q.float(), k.float()) * scale
+    acc = torch.promote_types(q.dtype, torch.float32)  # f32 math; f64 stays f64
+    scores = torch.einsum("bnhd,bmhd->bhnm", q.to(acc), k.to(acc)) * scale
     probs = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bhnm,bmhd->bnhd", probs, v.float())
+    out = torch.einsum("bhnm,bmhd->bnhd", probs, v.to(acc))
     return out.to(q.dtype)
 
 
@@ -53,13 +54,14 @@ def blockwise_attention(
         v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
     valid = torch.arange(m + pad, device=q.device) < m
 
-    qf = q.float() * scale
-    m_run = torch.full((b, h, n), -torch.inf, dtype=torch.float32, device=q.device)
-    l_run = torch.zeros((b, h, n), dtype=torch.float32, device=q.device)
-    acc = torch.zeros((b, n, h, d), dtype=torch.float32, device=q.device)
+    wide = torch.promote_types(q.dtype, torch.float32)  # f32 math; f64 stays f64
+    qf = q.to(wide) * scale
+    m_run = torch.full((b, h, n), -torch.inf, dtype=wide, device=q.device)
+    l_run = torch.zeros((b, h, n), dtype=wide, device=q.device)
+    acc = torch.zeros((b, n, h, d), dtype=wide, device=q.device)
     for start in range(0, m + pad, kv_block):
-        k_i = k[:, start:start + kv_block].float()
-        v_i = v[:, start:start + kv_block].float()
+        k_i = k[:, start:start + kv_block].to(wide)
+        v_i = v[:, start:start + kv_block].to(wide)
         mask_i = valid[start:start + kv_block]
         s = torch.einsum("bnhd,bmhd->bhnm", qf, k_i)
         s = torch.where(mask_i[None, None, None, :], s, -torch.inf)

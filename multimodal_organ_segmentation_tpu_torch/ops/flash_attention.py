@@ -5,7 +5,9 @@ attention forward over ``[B, N, H, D]`` query/key/value, no bias, query and
 key lengths may differ. ``flash_attention`` launches the hand-written CUDA
 kernel (``csrc/flash_attention.cu``) on a CUDA tensor; on a CPU tensor it
 runs the kernel's plain version, ``ops.attention.blockwise_attention`` with
-the Pallas kernel's 512-key blocks.
+the Pallas kernel's 512-key blocks. It is a ``torch.autograd.Function`` (the
+JAX kernel is a ``custom_vjp``): the backward differentiates the plain
+version on the saved inputs.
 """
 
 from __future__ import annotations
@@ -49,18 +51,14 @@ def _check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError("flash_attention: all inputs must be on one device")
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """Flash multi-head attention over ``[B, N, H, D]`` tokens.
+def _plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    from multimodal_organ_segmentation_tpu_torch.ops.attention import blockwise_attention
 
-    A CPU tensor runs the plain version; a CUDA tensor launches the kernel
-    or raises on anything the kernel does not take.
-    """
-    if q.device.type == "cpu":
-        from multimodal_organ_segmentation_tpu_torch.ops.attention import blockwise_attention
+    return blockwise_attention(q, k, v, kv_block=512)
 
-        return blockwise_attention(q, k, v, kv_block=512)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention: unsupported device {q.device}")
+
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Check the inputs, launch kernel B, count the launch."""
     _check_inputs(q, k, v)
     b, nq, h, d = q.shape
     out = torch.empty_like(q)
@@ -73,6 +71,43 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
     _build.check(lib, err, "flash_attention")
     flash_attention.launches += 1
     return out
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Forward: kernel B on a CUDA tensor, the plain version on a CPU tensor.
+    Backward: the gradient of ``blockwise_attention`` re-run on the saved q,
+    k, v (no probabilities are kept), as the JAX package's ``custom_vjp``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        ctx.save_for_backward(q, k, v)
+        if q.device.type == "cpu":
+            return _plain(q, k, v)
+        return _launch(q, k, v)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        inputs = [t.detach().requires_grad_(need)
+                  for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
+        with torch.enable_grad():
+            out = _plain(*inputs)
+        wanted = [t for t in inputs if t.requires_grad]
+        grads = iter(torch.autograd.grad(out, wanted, grad_out))
+        return tuple(next(grads) if t.requires_grad else None for t in inputs)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Flash multi-head attention over ``[B, N, H, D]`` tokens,
+    differentiable in q, k and v.
+
+    A CPU tensor runs the plain version; a CUDA tensor launches the kernel
+    or raises on anything the kernel does not take. Either way the result
+    stays in the autograd graph: the backward is the gradient of the plain
+    version on the saved inputs.
+    """
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    return _FlashAttention.apply(q, k, v)
 
 
 flash_attention.launches = 0

@@ -8,7 +8,9 @@ Port of the JAX package's ``ops/pallas/window_attention.py``. For windows
 
 with the math in f32 and the output in q's dtype. ``window_mha`` launches the
 hand-written CUDA kernel (``csrc/window_attention.cu``) on a CUDA tensor and
-runs ``dense_window_mha`` on a CPU tensor.
+runs ``dense_window_mha`` on a CPU tensor. It is a ``torch.autograd.Function``
+(the JAX kernel is a ``custom_vjp``): the backward differentiates the plain
+version on the saved inputs.
 """
 
 from __future__ import annotations
@@ -47,12 +49,13 @@ def dense_window_mha(
     """Plain version of kernel A (the reference dense formula)."""
     bw, n, h, d = q.shape
     scale = d**-0.5
-    s = torch.einsum("bnhd,bmhd->bhnm", q.float(), k.float()) * scale
-    s = s + bias[None].float()
+    acc = torch.promote_types(q.dtype, torch.float32)  # f32 math; f64 stays f64
+    s = torch.einsum("bnhd,bmhd->bhnm", q.to(acc), k.to(acc)) * scale
+    s = s + bias[None].to(acc)
     if mask is not None:
-        s = s + mask.float().repeat(bw // num_windows, 1, 1)[:, None]
+        s = s + mask.to(acc).repeat(bw // num_windows, 1, 1)[:, None]
     p = torch.softmax(s, dim=-1)
-    out = torch.einsum("bhnm,bmhd->bnhd", p, v.float())
+    out = torch.einsum("bhnm,bmhd->bnhd", p, v.to(acc))
     return out.to(q.dtype)
 
 
@@ -86,34 +89,8 @@ def _check_inputs(q, k, v, bias, mask, num_windows) -> None:
         raise ValueError("window_mha: all inputs must be on one device")
 
 
-def window_mha(
-    q: torch.Tensor,
-    k: torch.Tensor,
-    v: torch.Tensor,
-    bias: torch.Tensor,
-    mask: Optional[torch.Tensor],
-    num_windows: int,
-) -> torch.Tensor:
-    """Fused windowed MHA.
-
-    Args:
-        q, k, v: ``[BW, N, H, D]`` with BW = batch * num_windows, windows
-            fastest. On CUDA they may be strided views (e.g. slices of one
-            qkv projection) as long as they share strides and each token's
-            ``H * D`` values are contiguous.
-        bias: relative position bias ``[H, N, N]``, f32.
-        mask: shift mask ``[num_windows, N, N]``, f32, or None.
-        num_windows: nW, for the mask index ``bw % nW``.
-    Returns:
-        ``[BW, N, H, D]`` in q's dtype.
-
-    A CPU tensor runs :func:`dense_window_mha`; a CUDA tensor launches the
-    kernel or raises on anything the kernel does not take.
-    """
-    if q.device.type == "cpu":
-        return dense_window_mha(q, k, v, bias, mask, num_windows)
-    if q.device.type != "cuda":
-        raise ValueError(f"window_mha: unsupported device {q.device}")
+def _launch(q, k, v, bias, mask, num_windows) -> torch.Tensor:
+    """Check the inputs, launch kernel A, count the launch."""
     if mask is None:
         num_windows = 1
     _check_inputs(q, k, v, bias, mask, num_windows)
@@ -129,6 +106,63 @@ def window_mha(
     _build.check(lib, err, "window_mha")
     window_mha.launches += 1
     return out
+
+
+class _WindowMHA(torch.autograd.Function):
+    """Forward: kernel A on a CUDA tensor, the plain version on a CPU tensor.
+    Backward: the gradient of the plain version on the saved inputs (q, k,
+    v, bias, mask; no probabilities are kept), as the JAX package's
+    ``custom_vjp`` takes ``jax.vjp`` of its dense form. ``mask`` gets none."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, mask, num_windows):
+        ctx.save_for_backward(q, k, v, bias, mask)
+        ctx.num_windows = num_windows
+        if q.device.type == "cpu":
+            return dense_window_mha(q, k, v, bias, mask, num_windows)
+        return _launch(q, k, v, bias, mask, num_windows)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        q, k, v, bias, mask = ctx.saved_tensors
+        inputs = [t.detach().requires_grad_(need)
+                  for t, need in zip((q, k, v, bias), ctx.needs_input_grad[:4])]
+        with torch.enable_grad():
+            out = dense_window_mha(*inputs, mask, ctx.num_windows)
+        wanted = [t for t in inputs if t.requires_grad]
+        grads = iter(torch.autograd.grad(out, wanted, grad_out))
+        return (*(next(grads) if t.requires_grad else None for t in inputs), None, None)
+
+
+def window_mha(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    bias: torch.Tensor,
+    mask: Optional[torch.Tensor],
+    num_windows: int,
+) -> torch.Tensor:
+    """Fused windowed MHA, differentiable in q, k, v and bias.
+
+    Args:
+        q, k, v: ``[BW, N, H, D]`` with BW = batch * num_windows, windows
+            fastest. On CUDA they may be strided views (e.g. slices of one
+            qkv projection) as long as they share strides and each token's
+            ``H * D`` values are contiguous.
+        bias: relative position bias ``[H, N, N]``, f32.
+        mask: shift mask ``[num_windows, N, N]``, f32, or None.
+        num_windows: nW, for the mask index ``bw % nW``.
+    Returns:
+        ``[BW, N, H, D]`` in q's dtype.
+
+    A CPU tensor runs :func:`dense_window_mha`; a CUDA tensor launches the
+    kernel or raises on anything the kernel does not take. Either way the
+    result stays in the autograd graph: the backward is the gradient of
+    :func:`dense_window_mha` on the saved inputs.
+    """
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"window_mha: unsupported device {q.device}")
+    return _WindowMHA.apply(q, k, v, bias, mask, num_windows)
 
 
 window_mha.launches = 0

@@ -6,6 +6,7 @@ imported jax already (``tests/conftest.py``).
 
 import json
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -30,8 +31,12 @@ def _port_modules():
 
 
 def test_port_and_chip_smoke_import_no_jax():
-    mods = _port_modules() + ["chip_smoke"]
-    assert "multimodal_organ_segmentation_tpu_torch.ops.window_attention" in mods
+    mods = _port_modules() + ["chip_smoke", "scripts.proto_conv_kernel_torch"]
+    pkg = "multimodal_organ_segmentation_tpu_torch"
+    for new in ("ops.window_attention", "ops.conv3d", "train.losses", "train.optim",
+                "train.metrics", "train.checkpoint", "train.trainer", "data.synthetic",
+                "data.dataset", "data.dataloader", "utils.prng", "utils.io", "utils.nifti"):
+        assert f"{pkg}.{new}" in mods, new
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -43,6 +48,27 @@ def test_port_and_chip_smoke_import_no_jax():
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
+
+
+FOREIGN_IMPORT = re.compile(
+    r"^\s*(import|from) (jax|jaxlib|flax|optax|orbax|multimodal_organ_segmentation_tpu(\.|\s|$))",
+    re.MULTILINE)
+
+
+@pytest.mark.parametrize("path", ["chip_smoke.py", "scripts/proto_conv_kernel_torch.py"]
+                         + [str(p.relative_to(REPO)) for p in sorted(PORT.rglob("*.py"))])
+def test_source_holds_no_foreign_import(path):
+    """No line of the port, its smoke test or its conv script imports JAX,
+    flax, optax, orbax or the JAX package (``..._tpu_torch`` is the port)."""
+    assert not FOREIGN_IMPORT.search((REPO / path).read_text()), path
+
+
+def test_the_import_pattern_catches_what_it_should():
+    assert FOREIGN_IMPORT.search("import jax\n")
+    assert FOREIGN_IMPORT.search("    from optax import adamw\n")
+    assert FOREIGN_IMPORT.search("from multimodal_organ_segmentation_tpu.utils import io\n")
+    assert FOREIGN_IMPORT.search("import multimodal_organ_segmentation_tpu\n")
+    assert not FOREIGN_IMPORT.search("from multimodal_organ_segmentation_tpu_torch.ops import x\n")
 
 
 def test_build_model_without_a_device_needs_cuda(monkeypatch):
@@ -58,6 +84,16 @@ def test_chip_smoke_config_is_the_flagship_yaml():
         cfg = yaml.safe_load(f)
     assert chip_smoke.FLAGSHIP["model"] == cfg["model"]
     assert chip_smoke.FLAGSHIP["inference"] == cfg["inference"]
+    assert chip_smoke.FLAGSHIP["training"] == cfg["training"]
+    assert chip_smoke.FLAGSHIP["parallel"] == cfg["parallel"]
+    assert chip_smoke.FLAGSHIP["data"]["augmentation"] == cfg["data"]["augmentation"]
+    assert chip_smoke.FLAGSHIP["data"]["modalities"] == cfg["data"]["modalities"]
+    train = chip_smoke.train_config()
+    assert train["data"]["augmentation"]["enabled"] is False
+    assert train["training"]["skip_nonfinite_updates"] is True
+    for block in ("model", "parallel", "inference"):
+        assert train[block] == cfg[block]
+    assert {k: v for k, v in train["training"].items() if k != "skip_nonfinite_updates"} == cfg["training"]
     assert chip_smoke.FLAGSHIP["experiment"]["seed"] == cfg["experiment"]["seed"]
     assert chip_smoke.FLAGSHIP["hardware"]["mixed_precision"] == cfg["hardware"]["mixed_precision"]
 
@@ -72,6 +108,19 @@ def test_chip_smoke_main_path_shapes():
     ]
     assert list(chip_smoke.flash_shapes()) == [
         (1, 15, 1728, 2, 96), (2, 15, 216, 4, 96), (3, 15, 27, 8, 96)
+    ]
+
+
+def test_chip_smoke_training_shapes():
+    """One training micro-batch of 2 tiles: (H, BW) = (3, 1024), (6, 128),
+    (12, 16), (24, 2) for kernel A, B = 2 for kernel B."""
+    window = [(s, bw, h, nw) for s, bw, h, nw, _, _ in chip_smoke.window_shapes(2)]
+    assert window == [
+        (0, 1024, 3, None), (0, 1024, 3, 512), (1, 128, 6, None), (1, 128, 6, 64),
+        (2, 16, 12, None), (2, 16, 12, 8), (3, 2, 24, None), (3, 2, 24, None),
+    ]
+    assert list(chip_smoke.flash_shapes(2)) == [
+        (1, 2, 1728, 2, 96), (2, 2, 216, 4, 96), (3, 2, 27, 8, 96)
     ]
 
 
