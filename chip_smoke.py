@@ -11,29 +11,34 @@ Phases (any failure exits non-zero; no phase's error is caught):
    f32, the kernel against its plain PyTorch version on the same inputs,
    with the kernel's, the plain version's and one PyTorch library call's
    time (``F.scaled_dot_product_attention`` or ``F.conv3d``, yardsticks the
-   port never calls) beside the least time the card could take (``bound``):
-   the attention kernels at the serving shapes (forward) and at the training
-   shapes (forward + backward through their ``autograd.Function``s against
-   autograd of the plain versions), the convolution at its script's shapes;
-3. model   — one 96³ tile through the flagship model in f32 (TF32 off),
-   once through the kernels and once through the plain versions;
+   port never calls) beside the least time the card could take (``bound``:
+   bytes, FLOPs or exponentials, whichever is slowest), its share of that
+   bound and its ratio to the library call: the attention kernels at the
+   serving shapes (forward; bf16 must take the tensor-core route ``mma``,
+   f32 the ``f32`` route) and at the edge shapes of their tilings, and at
+   the training shapes (forward + backward through their
+   ``autograd.Function``s against autograd of the plain versions), the
+   convolution at its script's shapes;
+3. model   — one 96³ tile through the flagship model in f32 (TF32 off) and
+   in bf16, each once through the kernels and once through the plain
+   versions;
 4. serve   — the main path at full width: ``build_model`` of the flagship
    config (bf16, seeded init), then sliding-window inference
    (ROI 96³, overlap 0.5, Gaussian blend, 15 tiles a chunk) and
    ``predict_labels`` over one warm-up and three 192×192×256×2 volumes,
-   with each kernel's launches counted and held to the count the code
-   predicts. ``--profile`` adds a profiler pass over one more volume and
-   prints the device time by kernel;
+   with each kernel's launches counted per route and held to the counts
+   the wrappers' plans predict (every one on ``mma``). ``--profile`` adds a
+   profiler pass over one more volume and prints the device time by kernel;
 5. conv    — kernel C's own path: ``scripts/proto_conv_kernel_torch.py``;
 6. train   — the flagship trainer at full width (micro-batch 2 of 96³
    CT+PET patches, accumulation 4, bf16 compute on f32 master weights,
    remat, AdamW, ``dice_ce``, augmentation off): one warm-up optimiser step
    through the trainer's epoch loop and three timed ones, with the loss
    falling on the same batch, non-zero gradients on every attention
-   parameter, the kernels' launches held to the count the code predicts, a
-   forced non-finite batch skipped bit-exactly, and one f32 step through
-   the kernels against one through the plain versions. ``--profile`` adds a
-   profiler pass over one train step.
+   parameter, the kernels' launches per route held to the counts the plans
+   predict, a forced non-finite batch skipped bit-exactly, and one f32 step
+   through the kernels against one through the plain versions.
+   ``--profile`` adds a profiler pass over one train step.
 
 The line before the last holds one JSON object ``{"kernels": [...]}``;
 the last line is ``{"ok": true, "device": {...}}``. Without a CUDA device
@@ -128,6 +133,13 @@ EXP_S = 16 * 132 * 1.98e9
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 STEP_RTOL = 1e-4  # f32 train step, kernels against plain: loss and grad_norm, relative
 MODEL_TOL = 1e-3  # f32 logits after ~40 layers, each off by ~1e-6 relative
+# bf16 logits, kernels against plain versions: both paths round every
+# activation to bf16 (2**-9 relative), and they round in different places
+# inside attention (the plain bf16 path rounds scores, bias and
+# probabilities to bf16, the kernels keep them in f32 and round P only for
+# P.V), so each of the ~40 layers differs by a few bf16 ulp; the logits are
+# O(1). 0.25 absolute is about 30 ulp at |logit| < 2.
+MODEL_TOL_BF16 = 0.25
 
 
 def log(msg: str) -> None:
@@ -152,10 +164,16 @@ def gpu_time(fn, reps: int, flush) -> float:
     return total / reps
 
 
-def bound(nbytes: float, flops: float, dtype: str) -> tuple:
-    t_bytes = nbytes / HBM_BYTES_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+def bound(nbytes: float, flops: float, exps: float, dtype: str) -> tuple:
+    """The least ms the card could take: the largest of the bytes over HBM's
+    rate, the FLOPs over the peak of their type and the exponentials over
+    the special-function units' rate. Returns (ms, "bytes" or "operations",
+    the limit that sets it)."""
+    limits = {"bytes": nbytes / HBM_BYTES_S * 1e3,
+              f"{dtype} FLOPs": flops / PEAK_FLOPS[dtype] * 1e3,
+              "exponentials": exps / EXP_S * 1e3}
+    limit = max(limits, key=limits.get)
+    return limits[limit], ("bytes" if limit == "bytes" else "operations"), limit
 
 
 def phase_build() -> None:
@@ -166,9 +184,12 @@ def phase_build() -> None:
     log(f"[build] {len(logs)} of {len(_build.SOURCES)} kernel libraries built in "
         f"{time.perf_counter() - t0:.1f} s")
     for name, text in logs.items():
+        entry = ""
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[build] {name}: {line.strip()}")
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1] if "'" in line else line.strip()
+            elif "registers" in line or ("spill" in line and " 0 bytes spill" not in line):
+                log(f"[build] {name}: {entry}: {line.strip()}")
 
 
 def window_shapes(tiles=None):
@@ -203,11 +224,70 @@ def flash_shapes(tiles=None):
         yield stage, tiles, grid**3, heads, c // heads
 
 
+def predicted_launches(tiles: int, window_repeat: int, flash_repeat: int) -> dict:
+    """Each route's launches of kernels A and B when every window attention
+    of a batch of ``tiles`` tiles runs ``window_repeat`` times and every
+    fusion ``flash_repeat`` times, by the routes the wrappers' own plans
+    give the flagship's bf16 shapes."""
+    import torch
+
+    from multimodal_organ_segmentation_tpu_torch.ops import flash_attention as fa
+    from multimodal_organ_segmentation_tpu_torch.ops import window_attention as wa
+
+    counts = {"window_attention": dict.fromkeys(wa.ROUTES, 0),
+              "flash_attention": dict.fromkeys(fa.ROUTES, 0)}
+    for _, bw, heads, nw, _, w in window_shapes(tiles):
+        route = wa.plan(bw, w**3, heads, 16, nw or 1, torch.bfloat16)["route"]
+        counts["window_attention"][route] += window_repeat
+    for _, b, n, heads, d in flash_shapes(tiles):
+        counts["flash_attention"][fa.plan(b, n, n, heads, d, torch.bfloat16)["route"]] += flash_repeat
+    return counts
+
+
+def launch_count(counts) -> int:
+    """A wrapper's launches: an int, or the sum over its routes."""
+    return sum(counts.values()) if isinstance(counts, dict) else counts
+
+
+def reset_launches(*wrappers) -> None:
+    """Set every route's count of the attention wrappers to 0."""
+    for fn in wrappers:
+        fn.launches = dict.fromkeys(fn.launches, 0)
+
+
+# Edge shapes of the kernels' tilings, checked against the plain versions in
+# bf16 and f32 (not timed). Kernel A: (window edge, grid edge, heads, tiles,
+# shifted): 3³ and 7³ windows, a batch of one and of two tiles. Kernel B:
+# (B, Nq, Nk, H, D): key counts that are no multiple of 64, Nq != Nk, head
+# dims 16 to 128, a single key.
+WINDOW_EDGES = [(3, 6, 3, 2, True), (3, 6, 3, 1, False), (7, 14, 3, 1, True),
+                (7, 14, 3, 2, False), (6, 48, 3, 1, True), (6, 12, 12, 2, True)]
+FLASH_EDGES = [(2, 216, 27, 4, 96), (2, 27, 216, 4, 96), (2, 1728, 216, 2, 96),
+               (2, 100, 300, 2, 16), (2, 300, 100, 2, 32), (2, 129, 65, 2, 64),
+               (1, 64, 1000, 1, 128), (1, 5, 1, 1, 16)]
+
+
+def window_inputs(rng, dev, dtype, bw, n, heads, grid, w, shifted, requires_grad=False):
+    """Kernel A's inputs as the model hands them over: q, k, v strided views
+    of one qkv tensor, an f32 bias, the shift mask of a (grid, window) layer
+    or None; and the qkv tensor itself."""
+    import torch
+
+    from multimodal_organ_segmentation_tpu_torch.models.swin_unetr import _shift_attention_mask
+
+    qkv = torch.from_numpy(rng.standard_normal((bw, n, 3, heads, 16), np.float32))
+    qkv = qkv.to(dev, dtype).requires_grad_(requires_grad)
+    bias = torch.from_numpy(0.5 * rng.standard_normal((heads, n, n), np.float32))
+    bias = bias.to(dev).requires_grad_(requires_grad)
+    mask = _shift_attention_mask((grid,) * 3, (w,) * 3, (w // 2,) * 3, dev) if shifted else None
+    q, k, v = qkv.unbind(2)
+    return q, k, v, bias, mask, qkv
+
+
 def phase_kernels(flush) -> dict:
     import torch
     import torch.nn.functional as F
 
-    from multimodal_organ_segmentation_tpu_torch.models.swin_unetr import _shift_attention_mask
     from multimodal_organ_segmentation_tpu_torch.ops.attention import blockwise_attention
     from multimodal_organ_segmentation_tpu_torch.ops.flash_attention import flash_attention
     from multimodal_organ_segmentation_tpu_torch.ops.window_attention import (
@@ -229,14 +309,25 @@ def phase_kernels(flush) -> dict:
                           replaces="scripts/proto_conv_kernel.py:103"),
     }
     for s in summary.values():
-        s.update(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0, _bytes=0.0, _ops=0.0)
+        s.update(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0,
+                 _bytes=0.0, _ops=0.0, _exps=0.0)
 
-    def record(name, dtype, err, ms, plain_ms, lib_ms, nbytes, flops, extra):
-        t_bound, by = bound(nbytes, flops, dtype)
+    def routed(fn, call):
+        """Run ``call`` and return the route its one launch took."""
+        before = dict(fn.launches)
+        call()
+        taken = [r for r in fn.launches if fn.launches[r] != before[r]]
+        if len(taken) != 1 or fn.launches[taken[0]] != before[taken[0]] + 1:
+            raise SystemExit(f"one call launched {fn.launches} from {before}")
+        return taken[0]
+
+    def record(name, dtype, err, ms, plain_ms, lib_ms, nbytes, flops, exps, extra):
+        t_bound, by, limit = bound(nbytes, flops, exps, dtype)
         ok = err <= TOL[dtype]
         log(f"[kernels] {name} {extra} {dtype}: max_abs_err {err:.3e} (tol {TOL[dtype]:.0e}) "
             f"ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms {lib_ms:.4f} bound_ms {t_bound:.4f} "
-            f"({by}) {'ok' if ok else 'FAIL'}")
+            f"({by}: {limit}) {100 * t_bound / ms:.1f}% of bound, {ms / lib_ms:.2f}x library "
+            f"{'ok' if ok else 'FAIL'}")
         if not ok:
             raise SystemExit(f"{name} {extra} {dtype} disagrees with its plain version")
         if dtype == "bfloat16":  # the main path's type: one chunk's launches
@@ -247,25 +338,32 @@ def phase_kernels(flush) -> dict:
             s["library_ms"] += lib_ms
             s["_bytes"] += nbytes
             s["_ops"] += flops
+            s["_exps"] += exps
+
+    def check_edge(name, dname, route, want, err, extra):
+        ok = err <= TOL[dname] and route == want
+        log(f"[kernels] {name} edge {extra} {dname}: route {route} max_abs_err {err:.3e} "
+            f"(tol {TOL[dname]:.0e}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"{name} edge {extra} {dname}: route {route} (want {want}) or "
+                             "disagrees with its plain version")
 
     for dtype in (torch.bfloat16, torch.float32):
         dname = str(dtype).split(".")[1]
+        want = "mma" if dtype == torch.bfloat16 else "f32"
         elt = torch.finfo(dtype).bits // 8
         for stage, bw, heads, nw, grid, w in window_shapes():
             n, d = w**3, 16
-            qkv = torch.from_numpy(rng.standard_normal((bw, n, 3, heads, d), np.float32))
-            qkv = qkv.to(dev, dtype)
-            q, k, v = qkv.unbind(2)  # strided views, as the model hands them over
-            bias = torch.from_numpy(0.5 * rng.standard_normal((heads, n, n), np.float32)).to(dev)
-            mask = None
-            if nw is not None:
-                mask = _shift_attention_mask((grid,) * 3, (w,) * 3, (w // 2,) * 3, dev)
+            q, k, v, bias, mask, _ = window_inputs(rng, dev, dtype, bw, n, heads, grid, w, nw is not None)
             nw_arg = nw or 1
-            out = window_mha(q, k, v, bias, mask, nw_arg)
+            outs = []
+            route = routed(window_mha, lambda: outs.append(window_mha(q, k, v, bias, mask, nw_arg)))
             ref = dense_window_mha(q, k, v, bias, mask, nw_arg)
             torch.cuda.synchronize()
-            err = (out.float() - ref.float()).abs().max().item()
-            del ref
+            err = (outs[0].float() - ref.float()).abs().max().item()
+            del ref, outs
+            if route != want:
+                raise SystemExit(f"window_attention stage {stage} {dname} took route {route}")
             ms = gpu_time(lambda: window_mha(q, k, v, bias, mask, nw_arg), 10, flush)
             plain_ms = gpu_time(lambda: dense_window_mha(q, k, v, bias, mask, nw_arg), 3, flush)
             add = bias[None] if mask is None else (mask[:, None] + bias[None])
@@ -275,30 +373,61 @@ def phase_kernels(flush) -> dict:
             del add, qt, kt, vt
             nbytes = 4 * bw * n * heads * d * elt + heads * n * n * 4 + (nw * n * n * 4 if nw else 0)
             flops = 4 * bw * heads * n * n * d
-            exp_ms = bw * heads * n * n / EXP_S * 1e3
-            record("window_attention", dname, err, ms, plain_ms, lib_ms, nbytes, flops,
+            exps = bw * heads * n * n
+            record("window_attention", dname, err, ms, plain_ms, lib_ms, nbytes, flops, exps,
                    f"stage {stage} BW={bw} N={n} H={heads} D={d} mask={'yes' if nw else 'no'} "
-                   f"exp_bound_ms {exp_ms:.4f}")
+                   f"route {route}")
+        for w, grid, heads, tiles, shifted in WINDOW_EDGES:
+            n, nw = w**3, (grid // w) ** 3
+            q, k, v, bias, mask, _ = window_inputs(rng, dev, dtype, tiles * nw, n, heads, grid, w, shifted)
+            nw_arg = nw if shifted else 1
+            outs = []
+            route = routed(window_mha, lambda: outs.append(window_mha(q, k, v, bias, mask, nw_arg)))
+            ref = dense_window_mha(q, k, v, bias, mask, nw_arg)
+            err = (outs[0].float() - ref.float()).abs().max().item()
+            check_edge("window_attention", dname, route, want, err,
+                       f"N={n} tiles={tiles} nW={nw} H={heads} mask={'yes' if shifted else 'no'}")
         for stage, b, n, heads, d in flash_shapes():
             q, k, v = (torch.from_numpy(rng.standard_normal((b, n, heads, d), np.float32)).to(dev, dtype)
                        for _ in range(3))
-            out = flash_attention(q, k, v)
+            outs = []
+            route = routed(flash_attention, lambda: outs.append(flash_attention(q, k, v)))
             ref = blockwise_attention(q, k, v, kv_block=2048)
             torch.cuda.synchronize()
-            err = (out.float() - ref.float()).abs().max().item()
+            err = (outs[0].float() - ref.float()).abs().max().item()
+            del outs, ref
+            if route != want:
+                raise SystemExit(f"flash_attention /{2 ** (stage + 2)} {dname} took route {route}")
             ms = gpu_time(lambda: flash_attention(q, k, v), 10, flush)
             plain_ms = gpu_time(lambda: blockwise_attention(q, k, v, kv_block=2048), 3, flush)
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
             lib_ms = gpu_time(lambda: F.scaled_dot_product_attention(qt, kt, vt), 5, flush)
             nbytes = 4 * b * n * heads * d * elt
             flops = 4 * b * heads * n * n * d
-            exp_ms = b * heads * n * n / EXP_S * 1e3
-            record("flash_attention", dname, err, ms, plain_ms, lib_ms, nbytes, flops,
-                   f"/{2 ** (stage + 2)} B={b} N={n} H={heads} D={d} exp_bound_ms {exp_ms:.4f}")
+            exps = b * heads * n * n
+            record("flash_attention", dname, err, ms, plain_ms, lib_ms, nbytes, flops, exps,
+                   f"/{2 ** (stage + 2)} B={b} N={n} H={heads} D={d} route {route}")
+        for b, nq, nk, heads, d in FLASH_EDGES:
+            q = torch.from_numpy(rng.standard_normal((b, nq, heads, d), np.float32)).to(dev, dtype)
+            k, v = (torch.from_numpy(rng.standard_normal((b, nk, heads, d), np.float32)).to(dev, dtype)
+                    for _ in range(2))
+            outs = []
+            route = routed(flash_attention, lambda: outs.append(flash_attention(q, k, v)))
+            ref = blockwise_attention(q, k, v, kv_block=2048)
+            err = (outs[0].float() - ref.float()).abs().max().item()
+            check_edge("flash_attention", dname, route, want, err,
+                       f"B={b} Nq={nq} Nk={nk} H={heads} D={d}")
     kernels_conv(record, flush)
     kernels_train(summary, flush)
     for s in summary.values():
-        s["bound_ms"], s["bound_by"] = bound(s.pop("_bytes"), s.pop("_ops"), "bfloat16")
+        s["bound_ms"], s["bound_by"], s["bound_limit"] = bound(
+            s.pop("_bytes"), s.pop("_ops"), s.pop("_exps"), "bfloat16")
+        s["bound_pct"] = 100 * s["bound_ms"] / s["ms"]
+        s["x_library"] = s["ms"] / s["library_ms"]
+        log(f"[kernels] {s['source'].rsplit('/', 1)[1]} bf16 total: ms {s['ms']:.4f} bound_ms "
+            f"{s['bound_ms']:.4f} ({s['bound_by']}: {s['bound_limit']}) {s['bound_pct']:.1f}% of "
+            f"bound, library_ms {s['library_ms']:.4f}, {s['x_library']:.2f}x library")
+    torch.cuda.empty_cache()
     return summary
 
 
@@ -330,7 +459,7 @@ def kernels_conv(record, flush) -> None:
         elt = torch.finfo(dtype).bits // 8
         nbytes = (voxels * (cin + cout) + 27 * cin * cout) * elt
         flops = 2 * 27 * voxels * cin * cout
-        record("conv3x3x3", dname, err, ms, plain_ms, lib_ms, nbytes, flops,
+        record("conv3x3x3", dname, err, ms, plain_ms, lib_ms, nbytes, flops, 0,
                f"x {list(shape)} -> {cout} max |out| {top:.2f}")
         del x, w
     torch.cuda.empty_cache()
@@ -364,7 +493,6 @@ def kernels_train(summary, flush) -> None:
     inputs, so its time is the plain version's forward + backward."""
     import torch
 
-    from multimodal_organ_segmentation_tpu_torch.models.swin_unetr import _shift_attention_mask
     from multimodal_organ_segmentation_tpu_torch.ops.attention import blockwise_attention
     from multimodal_organ_segmentation_tpu_torch.ops.flash_attention import flash_attention
     from multimodal_organ_segmentation_tpu_torch.ops.window_attention import (
@@ -401,15 +529,9 @@ def kernels_train(summary, flush) -> None:
         dname = str(dtype).split(".")[1]
         for stage, bw, heads, nw, grid, w in window_shapes(micro):
             n, d = w**3, 16
-            qkv = torch.from_numpy(rng.standard_normal((bw, n, 3, heads, d), np.float32))
-            qkv = qkv.to(dev, dtype).requires_grad_()
-            bias = torch.from_numpy(0.5 * rng.standard_normal((heads, n, n), np.float32))
-            bias = bias.to(dev).requires_grad_()
-            mask = None
-            if nw is not None:
-                mask = _shift_attention_mask((grid,) * 3, (w,) * 3, (w // 2,) * 3, dev)
+            q, k, v, bias, mask, qkv = window_inputs(rng, dev, dtype, bw, n, heads, grid, w,
+                                                     nw is not None, requires_grad=True)
             nw_arg = nw or 1
-            q, k, v = qkv.unbind(2)  # strided views, as the model hands them over
             out = window_mha(q, k, v, bias, mask, nw_arg)
             go = torch.from_numpy(rng.standard_normal(tuple(out.shape), np.float32)).to(dev, dtype)
             grads = torch.autograd.grad(out, [qkv, bias], go)
@@ -440,6 +562,10 @@ def kernels_train(summary, flush) -> None:
 
 
 def phase_model() -> None:
+    """One 96³ tile through the flagship model, through the kernels and
+    through the plain versions: in f32 (TF32 off) and in bf16, the serving
+    type. Labels must agree on every voxel whose top-2 logit margin is above
+    twice the logit tolerance."""
     import torch
 
     from multimodal_organ_segmentation_tpu_torch.models.build import build_model
@@ -448,27 +574,29 @@ def phase_model() -> None:
     tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = json.loads(json.dumps(FLAGSHIP))
-    cfg["hardware"]["mixed_precision"] = "fp32"
-    model = build_model(cfg)
     x = torch.from_numpy(np.random.default_rng(1).standard_normal((1, 96, 96, 96, 2), np.float32)).cuda()
-    with torch.no_grad():
-        kern = model(x)
-        set_use_kernels(model, False)
-        plain = model(x)
-    torch.cuda.synchronize()
-    err = (kern - plain).abs().max().item()
-    top2 = plain.topk(2, dim=-1).values
-    clear = (top2[..., 0] - top2[..., 1]) > 2 * MODEL_TOL
-    agree = (kern.argmax(-1) == plain.argmax(-1)).float().mean().item()
-    agree_clear = (kern.argmax(-1) == plain.argmax(-1))[clear].all().item()
-    log(f"[model] flagship f32, one 96^3 tile: max |logit kernels - plain| {err:.3e} "
-        f"(tol {MODEL_TOL:.0e}), label agreement {agree:.6f}, all labels agree where the "
-        f"top-2 margin > {2 * MODEL_TOL:.0e} ({clear.float().mean().item():.4f} of voxels): {agree_clear}")
-    if not (torch.isfinite(kern).all() and err <= MODEL_TOL and agree_clear):
-        raise SystemExit("the model through the kernels disagrees with the plain versions")
+    for precision, tol in (("fp32", MODEL_TOL), ("bf16", MODEL_TOL_BF16)):
+        cfg = json.loads(json.dumps(FLAGSHIP))
+        cfg["hardware"]["mixed_precision"] = precision
+        model = build_model(cfg)
+        with torch.no_grad():
+            kern = model(x).float()
+            set_use_kernels(model, False)
+            plain = model(x).float()
+        torch.cuda.synchronize()
+        err = (kern - plain).abs().max().item()
+        top2 = plain.topk(2, dim=-1).values
+        clear = (top2[..., 0] - top2[..., 1]) > 2 * tol
+        same = kern.argmax(-1) == plain.argmax(-1)
+        agree, agree_clear = same.float().mean().item(), same[clear].all().item()
+        log(f"[model] flagship {precision}, one 96^3 tile: max |logit kernels - plain| {err:.3e} "
+            f"(tol {tol:.0e}; largest |logit| {plain.abs().max().item():.2f}), label agreement "
+            f"{agree:.6f}, all labels agree where the top-2 margin > {2 * tol:.0e} "
+            f"({clear.float().mean().item():.4f} of voxels): {agree_clear}")
+        if not (torch.isfinite(kern).all() and err <= tol and agree_clear):
+            raise SystemExit(f"the {precision} model through the kernels disagrees with the plain versions")
+        del model, kern, plain
     torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
-    del model
 
 
 def profile_device_time(fn, what: str) -> None:
@@ -532,13 +660,12 @@ def phase_serve(profile: bool) -> dict:
     volumes = [torch.from_numpy(rng.standard_normal((*VOLUME, 2), np.float32)).cuda()
                for _ in range(N_VOLUMES + 1)]
     chunks = math.ceil(tile_count(VOLUME, roi, overlap) / sw_batch)
-    blocks = sum(FLAGSHIP["model"]["backbone"]["depths"])
-    fusions = len(FLAGSHIP["model"]["fusion"]["stages"])
-    expect = {"window_attention": blocks * chunks * (N_VOLUMES + 1),
-              "flash_attention": fusions * chunks * (N_VOLUMES + 1)}
+    passes = chunks * (N_VOLUMES + 1)
+    expect = predicted_launches(sw_batch, passes, passes)
+    if any(counts["f32"] for counts in expect.values()):
+        raise SystemExit(f"a flagship bf16 attention is planned off the tensor-core route: {expect}")
 
-    window_mha.launches = 0
-    flash_attention.launches = 0
+    reset_launches(window_mha, flash_attention)
     t0 = time.perf_counter()
     serve(volumes[0])
     log(f"[serve] warm-up volume {(time.perf_counter() - t0) * 1e3:.1f} ms")
@@ -553,7 +680,8 @@ def phase_serve(profile: bool) -> dict:
               and abs(float(probs[::16, ::16, ::16].sum(-1).mean()) - 1.0) < 1e-3)
         if not ok:
             raise SystemExit("the main path's labels or probabilities are malformed")
-    launches = {"window_attention": window_mha.launches, "flash_attention": flash_attention.launches}
+    launches = {"window_attention": dict(window_mha.launches),
+                "flash_attention": dict(flash_attention.launches)}
     peak = torch.cuda.max_memory_allocated()
     mean = sum(times) / len(times)
     log(f"[serve] volume {VOLUME}x2, {chunks} chunks of {sw_batch} tiles: per-volume ms "
@@ -637,14 +765,13 @@ def phase_train(profile: bool) -> dict:
         raise SystemExit("the trainer's model is not bf16 compute on f32 master weights with remat")
 
     blocks = sum(cfg["model"]["backbone"]["depths"])
-    fusions = len(cfg["model"]["fusion"]["stages"])
     steps = 1 + TRAIN_STEPS
     # remat runs each Swin block's forward twice; the fusions lie outside it
-    expect = {"window_attention": 2 * blocks * accum * steps,
-              "flash_attention": fusions * accum * steps}
+    expect = predicted_launches(micro, 2 * accum * steps, accum * steps)
+    if any(counts["f32"] for counts in expect.values()):
+        raise SystemExit(f"a flagship bf16 attention is planned off the tensor-core route: {expect}")
 
-    window_mha.launches = 0
-    flash_attention.launches = 0
+    reset_launches(window_mha, flash_attention)
     lr = trainer.scheduler.lr_for_epoch(0)
     t0 = time.perf_counter()
     trainer._train_epoch(lr)  # one optimiser step through the epoch loop
@@ -668,7 +795,8 @@ def phase_train(profile: bool) -> dict:
         norms.append(float(metrics["grad_norm"]))
         if float(metrics["skipped"]) != 0.0:
             raise SystemExit("a train step on finite data was skipped")
-    launches = {"window_attention": window_mha.launches, "flash_attention": flash_attention.launches}
+    launches = {"window_attention": dict(window_mha.launches),
+                "flash_attention": dict(flash_attention.launches)}
     peak = torch.cuda.max_memory_allocated()
     mean = sum(times) / len(times)
     log(f"[train] micro-batch {micro} x accumulation {accum} of 96^3 patches: per-step ms "
@@ -736,10 +864,10 @@ def phase_train(profile: bool) -> dict:
         t32 = Trainer(train_config("fp32", accumulation_steps=1))
         t32.init_state()
         set_use_kernels(t32.model, use_kernels)
-        window_mha.launches = 0
+        reset_launches(window_mha)
         _, metrics = t32.train_step_fn()(t32.state, images[:1].float(), labels[:1], t32.keys.next())
         results[use_kernels] = (float(metrics["loss"]), float(metrics["grad_norm"]))
-        if window_mha.launches != (2 * blocks if use_kernels else 0):
+        if window_mha.launches != {"mma": 0, "f32": 2 * blocks if use_kernels else 0}:
             raise SystemExit(f"the f32 step with use_kernels={use_kernels} launched kernel A "
                              f"{window_mha.launches} times")
         del t32
@@ -782,9 +910,10 @@ def main(argv) -> int:
     kernels = []
     for name, s in summary.items():
         paths = {path: counts[name] for path, counts in by_path.items() if name in counts}
-        if not paths or not all(paths.values()):
+        if not paths or not all(launch_count(c) for c in paths.values()):
             raise SystemExit(f"kernel {name} was not launched on every path that runs it: {paths}")
-        kernels.append(dict(name=name, launches=sum(paths.values()), launches_by_path=paths, **s))
+        kernels.append(dict(name=name, launches=sum(launch_count(c) for c in paths.values()),
+                            launches_by_path=paths, **s))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

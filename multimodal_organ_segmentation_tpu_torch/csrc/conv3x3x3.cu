@@ -35,6 +35,7 @@
 // voxel and 8 output channels, inputs through L1/L2. It exists for exact
 // checks at small shapes, not for speed.
 #include "common.cuh"
+#include "mma.cuh"
 
 #include <cstdint>
 
@@ -53,15 +54,6 @@ constexpr int kNT = kNB / 8;                        // n8 column tiles per block
 constexpr int kMT = kTD * kTH / kWarps;             // m16 rows of voxels per warp (4)
 constexpr int kTaps = 27;
 constexpr int kSmemBytes = (kHalo + kTaps * kNB) * kRow * static_cast<int>(sizeof(__nv_bfloat16));
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 __global__ void __launch_bounds__(kThreads)
 conv3_bf16_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ wt,

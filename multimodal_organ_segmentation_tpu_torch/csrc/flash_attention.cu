@@ -6,14 +6,42 @@
 // flash_attention). Same function: out = softmax(q.k^T * D^-1/2) . v per
 // (batch, head), with a running max and denominator across key blocks,
 // padded keys masked out of scores and probabilities, one normalisation at
-// the end, f32 math and the output in q's dtype.
+// the end, f32 sums and the output in q's dtype.
 //
-// What bounds it on an H100: at the fusion shapes (D = 96; N = 1728, 216
-// and 27 tokens) the kernel does 4*Nq*Nk*D flops on (Nq + 2*Nk)*D inputs,
-// so arithmetic, not bytes, bounds it; a tensor-core kernel would be bound
-// by the bf16 mma rate, this first version by the f32 FMA pipes.
+// What bounds it on an H100: 4*Nq*Nk*D flops on (Nq + 2*Nk)*D inputs. At
+// the fusion shapes (D = 96; N = 1728, 216 and 27 tokens, 15 tiles a
+// serving chunk) that is 3.6e10 flops on 36 MB: the bf16 tensor-core rate
+// bounds it, 0.036 ms a chunk at 989 TFLOP/s; the bytes take 0.011 ms and
+// the Nq*Nk exponentials 0.03 ms on the special-function units.
 //
-// Design:
+// Two routes, chosen by the wrapper (ops/flash_attention.py::plan):
+//
+// mma (bf16, D a multiple of 16 up to 128): FlashAttention-2 on mma.sync
+//  m16n8k16 tensor-core tiles, so the products run at the tensor-core rate
+//  and not on the f32 pipes:
+//  * one block of 4 warps owns 64 query rows of one (batch, head); each warp
+//    owns 16 rows, held as D/16 A fragments in registers for the whole pass
+//    (staged once through the second K/V buffer, so a block needs 53 KB at
+//    D = 96 and four blocks, 16 warps, fit an SM). Two m16 row tiles a warp
+//    (half the ldmatrix traffic a product) took 255 registers and two
+//    blocks an SM, and were no faster;
+//  * K and V tiles of 64 keys stream through shared memory by 16-byte
+//    cp.async, double-buffered: tile j+1 loads while tile j computes. Rows
+//    are padded to D+8 elements, which puts the eight rows of every
+//    ldmatrix on eight different 16-byte bank groups (no conflicts);
+//  * S = Q.K^T is 8 m16n8 accumulators a warp; the online softmax runs on
+//    those registers in the log2 domain (scale * log2(e) folded in, one
+//    ex2 a score), with the running-max guard of the plain version (a row
+//    whose keys so far are all padding keeps m = -inf); padded keys of the
+//    last tile are -inf in the scores, zero rows in K and V (cp.async zero
+//    fill), and their 16-key steps are skipped;
+//  * P is converted in registers into the A fragments of P.V (P rounded to
+//    bf16 there, as in any tensor-core attention) and never touches shared
+//    memory; O is a 16 x D f32 accumulator a warp, normalised once at the
+//    end.
+//
+// f32 (float32, and bf16 at other head dims): the first version, on the
+// f32 FMA pipes, kept for exact checks:
 //  * one block of 8 warps per (batch*head, 64-query tile); the query tile is
 //    staged once in shared memory as f32 (pre-scaled), then the block walks
 //    64-key tiles of K and V through shared memory;
@@ -21,14 +49,130 @@
 //    scores (K rows padded to D+4 floats: conflict-free float4 reads), and
 //    ceil(D/32) output dims for P.V (V rows read one float per lane);
 //  * the running max starts at -inf and is guarded as in the plain
-//    blockwise_attention (a row whose keys so far are all padding keeps
-//    m = -inf and uses 0 in its exponent), so no -inf - -inf is taken;
+//    blockwise_attention, so no -inf - -inf is taken;
 //  * probabilities go through shared memory laid out [key][row] so the P.V
 //    loop reads the 8 rows of one key as two float4 broadcasts.
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace organseg {
 namespace {
+
+// ---- mma route ---------------------------------------------------------
+
+constexpr int kMmaThreads = 128;  // 4 warps x 16 query rows
+constexpr int kMmaRows = 64;      // query rows a block
+constexpr int kMmaKeys = 64;      // keys a K/V tile
+
+constexpr int mma_smem_bytes(int d) {
+  // two buffers of a K and a V tile [64][d+8] each, bf16; the q tile is
+  // staged in the second buffer before the first K/V tile is computed
+  return 4 * kMmaKeys * (d + 8) * 2;
+}
+
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads)
+flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                     const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
+                     int nq, int nk, int heads, float scale_log2) {
+  constexpr int S = D + 8;   // shared row stride, elements
+  constexpr int CH = D / 8;  // 16-byte chunks a row
+  extern __shared__ uint4 smem16[];
+  // [2 buffers][K, V][64][S]; the q tile [64][S] first sits in buffer 1
+  __nv_bfloat16* kv = reinterpret_cast<__nv_bfloat16*>(smem16);
+  __nv_bfloat16* qs = kv + 2 * kMmaKeys * S;
+
+  const int q0 = blockIdx.x * kMmaRows;
+  const int b = blockIdx.y / heads;
+  const int h = blockIdx.y - b * heads;
+  const long long row = static_cast<long long>(heads) * D;  // token stride
+  const __nv_bfloat16* qb = q + static_cast<long long>(b) * nq * row + h * D;
+  const __nv_bfloat16* kb = k + static_cast<long long>(b) * nk * row + h * D;
+  const __nv_bfloat16* vb = v + static_cast<long long>(b) * nk * row + h * D;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+
+  // 64 rows from `src` (row r0 first) into `dst`; rows at or past `limit`
+  // are zero-filled
+  auto stage = [&](__nv_bfloat16* dst, const __nv_bfloat16* src, int r0, int limit) {
+    for (int e = threadIdx.x; e < 64 * CH; e += kMmaThreads) {
+      const int r = e / CH;
+      const int c = e - r * CH;
+      const bool in = r0 + r < limit;
+      cp_async_16(dst + r * S + c * 8, src + (in ? r0 + r : 0) * row + c * 8, in);
+    }
+  };
+  auto stage_kv = [&](int buf, int k0) {
+    stage(kv + buf * 2 * kMmaKeys * S, kb, k0, nk);
+    stage(kv + (buf * 2 + 1) * kMmaKeys * S, vb, k0, nk);
+  };
+  stage(qs, qb, q0, nq);
+  stage_kv(0, 0);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  uint32_t qf[D / 16][4];
+  load_q_fragments(qf, qs + warp * 16 * S, S, lane);
+  __syncthreads();  // every warp holds its q before K/V tile 1 overwrites it
+
+  float o[D / 8][4];
+#pragma unroll
+  for (int t = 0; t < D / 8; ++t) o[t][0] = o[t][1] = o[t][2] = o[t][3] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  const int tiles = (nk + kMmaKeys - 1) / kMmaKeys;
+  const int g2 = 2 * (lane & 3);
+
+  for (int j = 0; j < tiles; ++j) {
+    const int buf = j & 1;
+    if (j + 1 < tiles) stage_kv(buf ^ 1, (j + 1) * kMmaKeys);
+    cp_async_commit();
+    cp_async_wait<1>();  // tile j has landed
+    __syncthreads();
+
+    const __nv_bfloat16* kt = kv + buf * 2 * kMmaKeys * S;
+    const int k0 = j * kMmaKeys;
+    const int steps = min(4, (nk - k0 + 15) / 16);  // 16-key steps holding a key
+    float s[8][4];
+    qk_chunk(s, qf, kt, S, steps, lane);
+    if (k0 + kMmaKeys <= nk) {
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] *= scale_log2;
+    } else {  // the ragged last tile: keys at or past nk are -inf
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          s[n][e] = (k0 + 8 * n + g2 + (e & 1) < nk) ? s[n][e] * scale_log2 : -INFINITY;
+    }
+    softmax_pv_chunk(s, steps, m, l, o, kt + kMmaKeys * S, S, lane);
+    __syncthreads();  // every warp is done with buffer `buf` before it refills
+  }
+
+  const int r0 = q0 + warp * 16;
+  store_rows(o, l, out + (static_cast<long long>(b) * nq + r0) * row + h * D, row, nq - r0, lane);
+}
+
+template <int D>
+cudaError_t launch_mma(const void* q, const void* k, const void* v, void* out, int b, int nq,
+                       int nk, int heads, float scale_log2, dim3 grid, int smem,
+                       cudaStream_t stream) {
+  if (grid.x != static_cast<unsigned>((nq + kMmaRows - 1) / kMmaRows) ||
+      grid.y != static_cast<unsigned>(b * heads) || smem != mma_smem_bytes(D))
+    return cudaErrorInvalidConfiguration;
+  auto kernel = flash_fwd_mma_kernel<D>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, kMmaThreads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), nq, nk, heads,
+      scale_log2);
+  return cudaGetLastError();
+}
+
+// ---- f32 route ---------------------------------------------------------
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
@@ -163,13 +307,15 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 
 template <typename T, int DPL>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out, int b, int nq,
-                   int nk, int heads, int d, float scale, cudaStream_t stream) {
-  const int smem = smem_bytes(d);
+                   int nk, int heads, int d, float scale, dim3 grid, int smem,
+                   cudaStream_t stream) {
+  if (grid.x != static_cast<unsigned>(b * heads) ||
+      grid.y != static_cast<unsigned>((nq + kBlockQ - 1) / kBlockQ) || smem != smem_bytes(d))
+    return cudaErrorInvalidConfiguration;
   auto kernel = flash_fwd_kernel<T, DPL>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(b * heads, (nq + kBlockQ - 1) / kBlockQ);
   kernel<<<grid, kThreads, smem, stream>>>(static_cast<const T*>(q), static_cast<const T*>(k),
                                           static_cast<const T*>(v), static_cast<T*>(out), nq,
                                           nk, heads, d, scale);
@@ -178,36 +324,73 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, int b
 
 template <typename T>
 cudaError_t dispatch_head_dim(const void* q, const void* k, const void* v, void* out, int b,
-                              int nq, int nk, int heads, int d, float scale,
-                              cudaStream_t stream) {
+                              int nq, int nk, int heads, int d, float scale, dim3 grid,
+                              int smem, cudaStream_t stream) {
+#define ORGANSEG_CASE(N) \
+  case N: return launch<T, N>(q, k, v, out, b, nq, nk, heads, d, scale, grid, smem, stream);
   switch ((d + 31) / 32) {
-    case 1: return launch<T, 1>(q, k, v, out, b, nq, nk, heads, d, scale, stream);
-    case 2: return launch<T, 2>(q, k, v, out, b, nq, nk, heads, d, scale, stream);
-    case 3: return launch<T, 3>(q, k, v, out, b, nq, nk, heads, d, scale, stream);
-    case 4: return launch<T, 4>(q, k, v, out, b, nq, nk, heads, d, scale, stream);
-    case 5: return launch<T, 5>(q, k, v, out, b, nq, nk, heads, d, scale, stream);
-    case 6: return launch<T, 6>(q, k, v, out, b, nq, nk, heads, d, scale, stream);
-    case 7: return launch<T, 7>(q, k, v, out, b, nq, nk, heads, d, scale, stream);
-    case 8: return launch<T, 8>(q, k, v, out, b, nq, nk, heads, d, scale, stream);
+    ORGANSEG_CASE(1)
+    ORGANSEG_CASE(2)
+    ORGANSEG_CASE(3)
+    ORGANSEG_CASE(4)
+    ORGANSEG_CASE(5)
+    ORGANSEG_CASE(6)
+    ORGANSEG_CASE(7)
+    ORGANSEG_CASE(8)
     default: return cudaErrorInvalidValue;
   }
+#undef ORGANSEG_CASE
 }
 
 }  // namespace
 }  // namespace organseg
 
-// q: contiguous [B, Nq, H, D]; k, v: contiguous [B, Nk, H, D]; out: contiguous
-// [B, Nq, H, D]. D is a multiple of 4, at most 256; Nk >= 1.
+// Both entries take the launch plan of ops/flash_attention.py::plan
+// (grid_x, grid_y, dynamic shared-memory bytes) and refuse one that
+// differs from the kernel's own (cudaErrorInvalidConfiguration).
+
+// f32 route. q: contiguous [B, Nq, H, D]; k, v: contiguous [B, Nk, H, D];
+// out: contiguous [B, Nq, H, D]. D is a multiple of 4, at most 256; Nk >= 1.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* out,
                                    int b, int nq, int nk, int heads, int d, float scale,
-                                   int dtype, int device, void* stream) {
+                                   int dtype, int grid_x, int grid_y, int smem, int device,
+                                   void* stream) {
   using namespace organseg;
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return set;
   auto s = static_cast<cudaStream_t>(stream);
+  const dim3 grid(grid_x, grid_y);
   if (dtype == kFloat32)
-    return dispatch_head_dim<float>(q, k, v, out, b, nq, nk, heads, d, scale, s);
+    return dispatch_head_dim<float>(q, k, v, out, b, nq, nk, heads, d, scale, grid, smem, s);
   if (dtype == kBFloat16)
-    return dispatch_head_dim<__nv_bfloat16>(q, k, v, out, b, nq, nk, heads, d, scale, s);
+    return dispatch_head_dim<__nv_bfloat16>(q, k, v, out, b, nq, nk, heads, d, scale, grid,
+                                            smem, s);
   return cudaErrorInvalidValue;
+}
+
+// mma route, bf16 only. Same layouts; D a multiple of 16, at most 128; every
+// pointer 16-byte aligned; scale_log2 = D^-1/2 * log2(e).
+extern "C" int flash_attention_fwd_mma(const void* q, const void* k, const void* v, void* out,
+                                       int b, int nq, int nk, int heads, int d,
+                                       float scale_log2, int grid_x, int grid_y, int smem,
+                                       int device, void* stream) {
+  using namespace organseg;
+  const cudaError_t set = cudaSetDevice(device);
+  if (set != cudaSuccess) return set;
+  auto s = static_cast<cudaStream_t>(stream);
+  const dim3 grid(grid_x, grid_y);
+#define ORGANSEG_CASE(D) \
+  case D: return launch_mma<D>(q, k, v, out, b, nq, nk, heads, scale_log2, grid, smem, s);
+  switch (d) {
+    ORGANSEG_CASE(16)
+    ORGANSEG_CASE(32)
+    ORGANSEG_CASE(48)
+    ORGANSEG_CASE(64)
+    ORGANSEG_CASE(80)
+    ORGANSEG_CASE(96)
+    ORGANSEG_CASE(112)
+    ORGANSEG_CASE(128)
+    default: return cudaErrorInvalidValue;
+  }
+#undef ORGANSEG_CASE
 }

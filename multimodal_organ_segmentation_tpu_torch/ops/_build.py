@@ -3,9 +3,10 @@
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its own
 shared library with a plain C interface, under ``build/kernels/`` at the
 root of the checkout, at first use. A library's file name carries a hash of
-its sources and flags, so an edited kernel is rebuilt and an unchanged one
-is reused. Libraries are loaded with ``ctypes``; every launching entry
-returns ``cudaGetLastError()`` and :func:`check` raises when it is not 0.
+its source, every shared header and the flags, so an edited kernel or
+header is rebuilt and an unchanged one is reused. Libraries are loaded
+with ``ctypes``; every launching entry returns ``cudaGetLastError()`` and
+:func:`check` raises when it is not 0.
 
 Nothing here runs at import time: the CPU tests import every module of the
 port on a machine with no ``nvcc``.
@@ -49,8 +50,12 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
+    """The library's path under ``BUILD_DIR``: its name and a hash of its
+    ``.cu``, every header under ``csrc/`` and the flags, so an edit to any
+    of them rebuilds it."""
     h = hashlib.sha256()
-    for src in (CSRC / f"{name}.cu", CSRC / "common.cuh"):
+    for src in (CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))):
+        h.update(src.name.encode())
         h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
@@ -88,6 +93,9 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, str]:
 def load(name: str, signatures: Dict[str, Signature]) -> ctypes.CDLL:
     """The loaded library ``name`` (built first if needed), with ``restype``
     and ``argtypes`` set for each function in ``signatures``."""
+    lib = _libs.get(name)
+    if lib is not None:  # the launch path: no lock once loaded
+        return lib
     with _lock:
         lib = _libs.get(name)
         if lib is None:

@@ -8,26 +8,62 @@ runs the kernel's plain version, ``ops.attention.blockwise_attention`` with
 the Pallas kernel's 512-key blocks. It is a ``torch.autograd.Function`` (the
 JAX kernel is a ``custom_vjp``): the backward differentiates the plain
 version on the saved inputs.
+
+The kernel has two routes, and :func:`plan` picks one by this rule: bf16
+with a head dim that is a multiple of 16 up to 128 and 16-byte aligned
+q, k, v takes ``"mma"`` (tensor cores); everything else (float32, other
+head dims) takes ``"f32"`` (the f32 pipes). ``flash_attention.launches``
+counts the launches of each route.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
 from multimodal_organ_segmentation_tpu_torch.ops import _build
 
 MAX_HEAD_DIM = 256  # q, K and V tiles of 64 rows fit in shared memory up to here
+MMA_MAX_HEAD_DIM = 128  # the tensor-core route: D a multiple of 16 up to here
+ROUTES = ("mma", "f32")
+SMEM_LIMIT = 232_448  # dynamic shared memory one block can use on Hopper (227 KB)
+MAX_GRID_Y = 65_535
+BLOCK_Q = 64  # query rows a block, both routes
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 _SIGNATURES = {
-    "flash_attention_fwd": (
-        _I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _I, _I, _P],
-    )
+    "flash_attention_fwd": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _I, _I, _I, _P]),
+    "flash_attention_fwd_mma": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _I, _I, _P]),
 }
+
+
+def plan(b: int, nq: int, nk: int, heads: int, d: int, dtype: torch.dtype,
+         aligned: bool = True) -> dict:
+    """The route and launch plan of kernel B for one call: ``route``,
+    ``grid`` (x, y), ``threads`` a block, ``rows`` (query rows a block) and
+    ``smem`` (dynamic shared-memory bytes). ``aligned``: q, k and v start on
+    16-byte boundaries (the tensor-core route copies 16-byte pieces).
+
+    mma: grid (query blocks, B*H), 4 warps of 16 query rows, K and V
+    [2][64][D+8] bf16 (the Q tile passes through the second buffer). f32:
+    grid (B*H, query blocks), 8 warps, the f32 tiles of
+    ``csrc/flash_attention.cu::smem_bytes``."""
+    q_blocks = math.ceil(nq / BLOCK_Q)
+    if dtype == torch.bfloat16 and d % 16 == 0 and d <= MMA_MAX_HEAD_DIM and aligned:
+        p = dict(route="mma", grid=(q_blocks, b * heads), threads=128,
+                 smem=4 * 64 * (d + 8) * 2)
+    else:
+        p = dict(route="f32", grid=(b * heads, q_blocks), threads=256,
+                 smem=(BLOCK_Q * d + 64 * (d + 4) + 64 * d + 8 * 64 * 8) * 4)
+    p["rows"] = BLOCK_Q
+    if p["grid"][1] > MAX_GRID_Y:
+        raise ValueError(f"flash_attention: grid {p['grid']} is too large")
+    return p
 
 
 def _check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -58,18 +94,25 @@ def _plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 
 
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """Check the inputs, launch kernel B, count the launch."""
+    """Check the inputs, launch kernel B on the route :func:`plan` picks,
+    count the launch."""
     _check_inputs(q, k, v)
     b, nq, h, d = q.shape
+    nk = k.shape[1]
+    aligned = all(t.data_ptr() % 16 == 0 for t in (q, k, v))
+    p = plan(b, nq, nk, h, d, q.dtype, aligned)
     out = torch.empty_like(q)
     lib = _build.load("flash_attention", _SIGNATURES)
-    err = lib.flash_attention_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, nq, k.shape[1], h, d,
-        d**-0.5, _DTYPES[q.dtype], q.device.index,
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
-    _build.check(lib, err, "flash_attention")
-    flash_attention.launches += 1
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
+    launch = (*p["grid"], p["smem"], q.device.index, stream)
+    if p["route"] == "mma":
+        err = lib.flash_attention_fwd_mma(*ptrs, b, nq, nk, h, d, d**-0.5 * math.log2(math.e),
+                                          *launch)
+    else:
+        err = lib.flash_attention_fwd(*ptrs, b, nq, nk, h, d, d**-0.5, _DTYPES[q.dtype], *launch)
+    _build.check(lib, err, f"flash_attention ({p['route']} route)")
+    flash_attention.launches[p["route"]] += 1
     return out
 
 
@@ -110,4 +153,4 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
     return _FlashAttention.apply(q, k, v)
 
 
-flash_attention.launches = 0
+flash_attention.launches = dict.fromkeys(ROUTES, 0)

@@ -25,6 +25,7 @@ from multimodal_organ_segmentation_tpu_torch.ops.window_attention import (
     dense_window_mha,
     window_mha,
 )
+from tests.torch_port_utils import _one_thread  # noqa: F401
 
 
 def _window_inputs(bw, n, h, d, nw, with_mask, seed=0):

@@ -20,6 +20,7 @@ import jax
 import jax.numpy as jnp
 
 from multimodal_organ_segmentation_tpu_torch.ops.conv3d import conv3x3x3, conv3x3x3_plain
+from tests.torch_port_utils import _one_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
 

@@ -4,18 +4,23 @@
 the port are held against their JAX counterparts and against the Pallas
 ``flash_attention`` in interpret mode (the JAX package's own CPU run). The
 CUDA kernel runs only on the card (``chip_smoke.py``); here the wrapper's
-dispatch and input checks are tested on CPU tensors.
+dispatch and input checks are tested on CPU tensors, and its route and
+launch plan (``plan``) as plain Python.
 
 Tolerances: f32 2e-5 absolute, as ``tests/test_flash_attention.py`` holds
 the Pallas kernel (outputs are O(1) convex combinations of the values; the
 packages sum in different orders); bf16 2e-2 (bf16 inputs and output).
 """
 
+import math
+
 import numpy as np
 import pytest
 import torch
 
 import jax.numpy as jnp
+
+import chip_smoke
 
 from multimodal_organ_segmentation_tpu.ops import attention as jatt
 from multimodal_organ_segmentation_tpu.ops.pallas.flash_attention import (
@@ -24,6 +29,7 @@ from multimodal_organ_segmentation_tpu.ops.pallas.flash_attention import (
 from multimodal_organ_segmentation_tpu_torch.ops import attention as tatt
 from multimodal_organ_segmentation_tpu_torch.ops import flash_attention as tfa
 from tests.torch_port_utils import as_np, port
+from tests.torch_port_utils import _one_thread  # noqa: F401
 
 F32_TOL = 2e-5
 BF16_TOL = 2e-2
@@ -93,7 +99,7 @@ def test_bf16_matches_pallas():
 
 def test_flash_attention_on_cpu_runs_the_plain_version():
     _, (q, k, v) = _both(_qkv(100, 600, 2, 8))
-    before = tfa.flash_attention.launches
+    before = dict(tfa.flash_attention.launches)
     out = tfa.flash_attention(q, k, v)
     assert torch.equal(out, tatt.blockwise_attention(q, k, v, kv_block=512))
     assert tfa.flash_attention.launches == before  # only a kernel launch counts
@@ -126,3 +132,56 @@ def test_kernel_takes_head_dims_up_to_256():
         tfa._check_inputs(big, big, big)
     ok = torch.zeros((1, 4, 1, 256))
     tfa._check_inputs(ok, ok, ok)
+
+
+# ---- route and launch plan ---------------------------------------------
+
+
+@pytest.mark.parametrize("tiles", [15, 2], ids=["serving_chunk", "training_micro_batch"])
+def test_every_flagship_bf16_shape_takes_the_mma_route(tiles):
+    for stage, b, n, heads, d in chip_smoke.flash_shapes(tiles):
+        p = tfa.plan(b, n, n, heads, d, torch.bfloat16)
+        assert p["route"] == "mma", (stage, b, n, heads, d)
+        assert p["threads"] == 128 and p["rows"] == 64  # 4 warps of 16 query rows
+
+
+@pytest.mark.parametrize("tiles", [15, 2], ids=["serving_chunk", "training_micro_batch"])
+def test_f32_takes_the_f32_route(tiles):
+    for _, b, n, heads, d in chip_smoke.flash_shapes(tiles):
+        assert tfa.plan(b, n, n, heads, d, torch.float32)["route"] == "f32"
+
+
+def test_plan_fits_shared_memory_for_every_head_dim():
+    """Both routes at every head dim the kernel takes: the tensor-core route
+    exactly for bf16 at multiples of 16 up to 128 and aligned inputs."""
+    for d in range(4, tfa.MAX_HEAD_DIM + 1, 4):
+        for dtype in (torch.bfloat16, torch.float32):
+            for aligned in (True, False):
+                p = tfa.plan(2, 100, 300, 2, d, dtype, aligned)
+                mma = dtype == torch.bfloat16 and d % 16 == 0 and d <= 128 and aligned
+                assert p["route"] == ("mma" if mma else "f32"), (d, dtype, aligned)
+                assert p["smem"] <= tfa.SMEM_LIMIT == 232_448, (d, p)
+    assert tfa.plan(15, 1728, 1728, 2, 96, torch.bfloat16)["smem"] == 53_248  # 4 blocks an SM
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,nq,heads", [(15, 1728, 2), (15, 216, 4), (15, 27, 8), (2, 129, 3),
+                                        (1, 64, 1), (1, 1, 1)])
+def test_plan_grid_covers_every_query_row_once(b, nq, heads, dtype):
+    """By the kernels' index arithmetic: mma blocks are (query block, b*H),
+    f32 blocks (b*H, query block); each covers 64 query rows."""
+    p = tfa.plan(b, nq, 300, heads, 96, dtype)
+    count = np.zeros((b * heads, nq), np.int64)
+    qb_axis = 0 if p["route"] == "mma" else 1
+    assert p["rows"] == 64
+    assert p["grid"][1 - qb_axis] == b * heads
+    assert p["grid"][qb_axis] == math.ceil(nq / p["rows"])
+    for bh in range(b * heads):
+        for qb in range(p["grid"][qb_axis]):
+            count[bh, qb * p["rows"]:(qb + 1) * p["rows"]] += 1
+    assert (count == 1).all()
+
+
+def test_plan_refuses_a_grid_the_card_cannot_launch():
+    with pytest.raises(ValueError, match="grid"):
+        tfa.plan(70_000, 64, 64, 1, 16, torch.bfloat16)

@@ -17,6 +17,7 @@ import yaml
 
 import chip_smoke
 from multimodal_organ_segmentation_tpu_torch.models.build import build_model
+from tests.torch_port_utils import _one_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "multimodal_organ_segmentation_tpu_torch"
@@ -31,7 +32,8 @@ def _port_modules():
 
 
 def test_port_and_chip_smoke_import_no_jax():
-    mods = _port_modules() + ["chip_smoke", "scripts.proto_conv_kernel_torch"]
+    mods = _port_modules() + ["chip_smoke", "scripts.proto_conv_kernel_torch",
+                              "scripts.ab_paths"]
     pkg = "multimodal_organ_segmentation_tpu_torch"
     for new in ("ops.window_attention", "ops.conv3d", "train.losses", "train.optim",
                 "train.metrics", "train.checkpoint", "train.trainer", "data.synthetic",
@@ -55,7 +57,8 @@ FOREIGN_IMPORT = re.compile(
     re.MULTILINE)
 
 
-@pytest.mark.parametrize("path", ["chip_smoke.py", "scripts/proto_conv_kernel_torch.py"]
+@pytest.mark.parametrize("path", ["chip_smoke.py", "scripts/proto_conv_kernel_torch.py",
+                                  "scripts/ab_paths.py"]
                          + [str(p.relative_to(REPO)) for p in sorted(PORT.rglob("*.py"))])
 def test_source_holds_no_foreign_import(path):
     """No line of the port, its smoke test or its conv script imports JAX,

@@ -16,6 +16,7 @@ from multimodal_organ_segmentation_tpu.train import losses as jlosses
 from multimodal_organ_segmentation_tpu.utils.config import ConfigNode as JConfigNode
 from multimodal_organ_segmentation_tpu_torch.train import losses as tlosses
 from multimodal_organ_segmentation_tpu_torch.utils.config import ConfigNode
+from tests.torch_port_utils import _one_thread  # noqa: F401
 
 VALUE_TOL = 1e-6
 GRAD_RTOL = 1e-5

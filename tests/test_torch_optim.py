@@ -20,6 +20,7 @@ from multimodal_organ_segmentation_tpu.train import optim as joptim
 from multimodal_organ_segmentation_tpu.utils.config import ConfigNode as JConfigNode
 from multimodal_organ_segmentation_tpu_torch.train import optim as toptim
 from multimodal_organ_segmentation_tpu_torch.utils.config import ConfigNode
+from tests.torch_port_utils import _one_thread  # noqa: F401
 
 STEPS = 5
 TOL = 1e-6

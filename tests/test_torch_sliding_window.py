@@ -4,9 +4,10 @@ the JAX package's, and the slice as a whole.
 The slice test builds the flagship's structure narrow (fs=12, 6³ windows,
 fusion at stages 1-3, 2 channels, 8 classes), converts the same seeded
 params into the port, and runs ``sliding_window_inference`` +
-``predict_labels`` on a 40³ volume with a 32³ ROI (8 tiles in chunks of 3,
-so the last chunk holds one padded slot), for the unrolled and the
-``scan_blocks`` JAX trees alike.
+``predict_labels`` on a 40×40×32 volume with a 32³ ROI (4 tiles in chunks
+of 3, so the last chunk holds two padded slots). The JAX reference runs
+once, on the unrolled tree; the port loads those params from the unrolled
+tree and, restacked along depth, from the ``scan_blocks`` tree.
 
 Tolerances: the blend alone is a weighted mean of the same f32 numbers,
 summed in the same tile order: 1e-6. The whole slice runs ~40 f32 layers on
@@ -14,10 +15,13 @@ each side in another summation order: 1e-4 on the logits; labels must
 agree wherever the JAX logits' top-2 margin exceeds twice that.
 """
 
+import re
+
 import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from multimodal_organ_segmentation_tpu.models import swin_unetr as jswin
@@ -27,6 +31,7 @@ from multimodal_organ_segmentation_tpu_torch.models import convert
 from multimodal_organ_segmentation_tpu_torch.models.build import build_model
 from multimodal_organ_segmentation_tpu_torch.ops import sliding_window as tsw
 from tests.torch_port_utils import as_np, no_tf32, port, seeded_variables
+from tests.torch_port_utils import _one_thread  # noqa: F401
 
 BLEND_TOL = 1e-6
 SLICE_TOL = 1e-4
@@ -122,13 +127,34 @@ def _slice_config(scan_blocks):
     }
 
 
-@pytest.mark.parametrize("scan_blocks", [False, True])
-def test_slice_matches_jax(scan_blocks):
-    no_tf32()
+SLICE_VOLUME = (40, 40, 32)
+
+
+def _scan_tree(params):
+    """The ``scan_blocks`` form of an unrolled SwinUNETR param tree: each
+    stage's ``stage{s}_block{b}`` leaves stacked along a leading depth axis
+    under ``stage{s}/blocks``."""
+    stages = {}
+    out = {}
+    for key, value in params.items():
+        m = re.fullmatch(r"stage(\d+)_block(\d+)", key)
+        if m:
+            stages.setdefault(f"stage{m.group(1)}", {})[int(m.group(2))] = value
+        else:
+            out[key] = value
+    for stage, blocks in stages.items():
+        ordered = [blocks[b] for b in sorted(blocks)]
+        out[stage] = {"blocks": jax.tree_util.tree_map(lambda *a: np.stack(a), *ordered)}
+    return out
+
+
+@pytest.fixture(scope="module")
+def jax_slice():
+    """The JAX package's slice on the unrolled tree: the volume, the params,
+    the logits and the labels."""
     roi, sw, classes = (32, 32, 32), 3, 8
-    vol = np.random.default_rng(2).normal(size=(40, 40, 40, 2)).astype(np.float32)
-    cfg = _slice_config(scan_blocks)
-    flax_model = jswin.build_swin_unetr(ConfigNode(cfg))
+    vol = np.random.default_rng(2).normal(size=(*SLICE_VOLUME, 2)).astype(np.float32)
+    flax_model = jswin.build_swin_unetr(ConfigNode(_slice_config(False)))
     variables = seeded_variables(flax_model, vol[None, :32, :32, :32], train=False, seed=3)
 
     def j_predict(params, patches):
@@ -138,14 +164,34 @@ def test_slice_matches_jax(scan_blocks):
         jnp.asarray(vol), j_predict, roi, classes, 0.5, sw, "gaussian", params=variables
     )
     j_labels = np.asarray(jsw.predict_labels(lambda v: j_logits, jnp.asarray(vol)))
-    j_logits = np.asarray(j_logits)
+    return vol, variables, np.asarray(j_logits), j_labels
 
-    model = build_model(cfg, device="cpu")
-    model.load_state_dict(convert.swin_unetr_params_from_jax(variables))
+
+def test_scan_tree_restacks_the_unrolled_blocks(jax_slice):
+    _, variables, _, _ = jax_slice
+    scan = _scan_tree(variables["params"])
+    assert sorted(k for k in scan if k.startswith("stage")) == [f"stage{s}" for s in range(4)]
+    leaf = scan["stage1"]["blocks"]
+    first = jax.tree_util.tree_leaves(leaf)[0]
+    assert first.shape[0] == 2
+    np.testing.assert_array_equal(
+        first[1], jax.tree_util.tree_leaves(variables["params"]["stage1_block1"])[0])
+
+
+@pytest.mark.parametrize("scan_blocks", [False, True])
+def test_slice_matches_jax(scan_blocks, jax_slice):
+    no_tf32()
+    roi, sw, classes = (32, 32, 32), 3, 8
+    vol, variables, j_logits, j_labels = jax_slice
+    assert tsw.tile_count(SLICE_VOLUME, roi, 0.5) == 4
+    params = _scan_tree(variables["params"]) if scan_blocks else variables["params"]
+
+    model = build_model(_slice_config(scan_blocks), device="cpu")
+    model.load_state_dict(convert.swin_unetr_params_from_jax({"params": params}))
     t_logits = tsw.sliding_window_inference(port(vol), model, roi, classes, 0.5, sw, "gaussian")
     t_labels = tsw.predict_labels(lambda v: t_logits, port(vol)).numpy()
 
-    assert t_logits.shape == (40, 40, 40, classes) and torch.isfinite(t_logits).all()
+    assert t_logits.shape == (*SLICE_VOLUME, classes) and torch.isfinite(t_logits).all()
     np.testing.assert_allclose(as_np(t_logits), j_logits, rtol=SLICE_TOL, atol=SLICE_TOL)
     top2 = np.sort(j_logits, axis=-1)[..., -2:]
     clear = (top2[..., 1] - top2[..., 0]) > 2 * SLICE_TOL

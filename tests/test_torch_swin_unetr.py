@@ -26,6 +26,7 @@ from multimodal_organ_segmentation_tpu_torch.models import layers as tlayers
 from multimodal_organ_segmentation_tpu_torch.models import swin_unetr as tswin
 from multimodal_organ_segmentation_tpu_torch.models.build import build_model
 from tests.torch_port_utils import as_np, no_tf32, port, seeded_variables
+from tests.torch_port_utils import _one_thread  # noqa: F401
 
 TOL = 2e-5
 MODEL_TOL = 1e-4

@@ -48,15 +48,7 @@ from multimodal_organ_segmentation_tpu_torch.train.trainer import (
 )
 from multimodal_organ_segmentation_tpu_torch.utils.config import ConfigNode
 from tests.torch_port_utils import no_tf32, seeded_variables
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """The suite runs several workers on few cores: one intra-op thread per
-    worker keeps these small models from thrashing the others."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from tests.torch_port_utils import _one_thread  # noqa: F401
 
 
 K = 3

@@ -4,9 +4,13 @@ Parameters of a flax module are made without an eager ``init``: the shapes
 come from ``jax.eval_shape`` and the values from a numpy seed, so the JAX
 side and the port get the same weights. Data crosses between the two
 packages as numpy arrays.
+
+Every port test module imports ``_one_thread``, which pytest then applies
+to each test of that module.
 """
 
 import numpy as np
+import pytest
 import torch
 
 import jax
@@ -59,3 +63,13 @@ def no_tf32() -> None:
     """Full-f32 matmuls and convolutions, as the references compute."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """The suite runs several workers on few cores: one intra-op thread per
+    worker keeps the port's tests from thrashing each other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
