@@ -18,7 +18,8 @@ Phases (any failure exits non-zero; no phase's error is caught):
    f32 the ``f32`` route) and at the edge shapes of their tilings, and at
    the training shapes (forward + backward through their
    ``autograd.Function``s against autograd of the plain versions), the
-   convolution at its script's shapes;
+   convolution at its script's shapes and at the edge shapes of its
+   tiling (bf16 must take the ``wgmma`` route, f32 the ``f32`` route);
 3. model   — one 96³ tile through the flagship model in f32 (TF32 off) and
    in bf16, each once through the kernels and once through the plain
    versions;
@@ -250,7 +251,7 @@ def launch_count(counts) -> int:
 
 
 def reset_launches(*wrappers) -> None:
-    """Set every route's count of the attention wrappers to 0."""
+    """Set every route's count of the kernel wrappers to 0."""
     for fn in wrappers:
         fn.launches = dict.fromkeys(fn.launches, 0)
 
@@ -265,6 +266,12 @@ WINDOW_EDGES = [(3, 6, 3, 2, True), (3, 6, 3, 1, False), (7, 14, 3, 1, True),
 FLASH_EDGES = [(2, 216, 27, 4, 96), (2, 27, 216, 4, 96), (2, 1728, 216, 2, 96),
                (2, 100, 300, 2, 16), (2, 300, 100, 2, 32), (2, 129, 65, 2, 64),
                (1, 64, 1000, 1, 128), (1, 5, 1, 1, 16)]
+# Kernel C: (x shape, Cout). D/H/W below, not a multiple of and one past the
+# 8-voxel tile, and a one-voxel axis; C = 8, 24, 40 (not multiples of the
+# 16-channel stage); Cout = 8, 56, 104 (not multiples of the 48-channel
+# block); batches of 1 and 3; and one shape of whole tiles and blocks.
+CONV_EDGES = [((1, 5, 7, 3, 8), 8), ((3, 9, 9, 9, 24), 56), ((1, 1, 12, 17, 40), 104),
+              ((3, 16, 8, 1, 8), 56), ((1, 10, 1, 20, 24), 8), ((2, 8, 16, 24, 16), 96)]
 
 
 def window_inputs(rng, dev, dtype, bw, n, heads, grid, w, shifted, requires_grad=False):
@@ -417,7 +424,7 @@ def phase_kernels(flush) -> dict:
             err = (outs[0].float() - ref.float()).abs().max().item()
             check_edge("flash_attention", dname, route, want, err,
                        f"B={b} Nq={nq} Nk={nk} H={heads} D={d}")
-    kernels_conv(record, flush)
+    kernels_conv(record, routed, check_edge, flush)
     kernels_train(summary, flush)
     for s in summary.values():
         s["bound_ms"], s["bound_by"], s["bound_limit"] = bound(
@@ -431,27 +438,39 @@ def phase_kernels(flush) -> dict:
     return summary
 
 
-def kernels_conv(record, flush) -> None:
-    """Kernel C against ``conv3x3x3_plain`` at its script's three shapes. The
-    weights are scaled so that the outputs stay below 2, where one bf16 ulp
-    is 7.8e-3 and the absolute bf16 tolerance of 2e-2 means two ulp."""
+def kernels_conv(record, routed, check_edge, flush) -> None:
+    """Kernel C against ``conv3x3x3_plain`` at its script's three shapes and
+    at the edge shapes of its tiling (``CONV_EDGES``, not timed), each in
+    bf16 (route ``wgmma``) and f32 (route ``f32``). The weights are scaled
+    so that the outputs stay below 2, where one bf16 ulp is 7.8e-3 and the
+    absolute bf16 tolerance of 2e-2 means two ulp."""
     import torch
 
     from multimodal_organ_segmentation_tpu_torch.ops.conv3d import conv3x3x3, conv3x3x3_plain
-    from scripts.proto_conv_kernel_torch import SHAPES_BF16, library_conv, make_inputs
+    from scripts.proto_conv_kernel_torch import (
+        BATCH,
+        SHAPE_F32,
+        SHAPES_BF16,
+        library_conv,
+        make_inputs,
+    )
 
-    cases = [((2, 16, 16, 16, 8), 8, torch.float32)]
-    cases += [((8, 96, 96, 96, cin), cout, torch.bfloat16) for cin, cout in SHAPES_BF16]
+    want = {torch.bfloat16: "wgmma", torch.float32: "f32"}
+    cases = [(*SHAPE_F32, torch.float32)]
+    cases += [((BATCH, 96, 96, 96, cin), cout, torch.bfloat16) for cin, cout in SHAPES_BF16]
     for shape, cout, dtype in cases:
         dname = str(dtype).split(".")[1]
         cin = shape[-1]
         x, w = make_inputs(shape, cout, dtype, 2, 0.3 / math.sqrt(27 * cin))
-        out = conv3x3x3(x, w)
+        outs = []
+        route = routed(conv3x3x3, lambda: outs.append(conv3x3x3(x, w)))
         torch.cuda.synchronize()
         ref = conv3x3x3_plain(x, w)
-        err = (out.float() - ref.float()).abs().max().item()
+        err = (outs[0].float() - ref.float()).abs().max().item()
         top = ref.float().abs().max().item()
-        del out, ref
+        del outs, ref
+        if route != want[dtype]:
+            raise SystemExit(f"conv3x3x3 {list(shape)} -> {cout} {dname} took route {route}")
         ms = gpu_time(lambda: conv3x3x3(x, w), 5, flush)
         plain_ms = gpu_time(lambda: conv3x3x3_plain(x, w), 2, flush)
         lib_ms = gpu_time(lambda: library_conv(x, w), 5, flush)
@@ -460,8 +479,16 @@ def kernels_conv(record, flush) -> None:
         nbytes = (voxels * (cin + cout) + 27 * cin * cout) * elt
         flops = 2 * 27 * voxels * cin * cout
         record("conv3x3x3", dname, err, ms, plain_ms, lib_ms, nbytes, flops, 0,
-               f"x {list(shape)} -> {cout} max |out| {top:.2f}")
+               f"x {list(shape)} -> {cout} max |out| {top:.2f} route {route}")
         del x, w
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).split(".")[1]
+        for shape, cout in CONV_EDGES:
+            x, w = make_inputs(shape, cout, dtype, 3, 0.3 / math.sqrt(27 * shape[-1]))
+            outs = []
+            route = routed(conv3x3x3, lambda: outs.append(conv3x3x3(x, w)))
+            err = (outs[0].float() - conv3x3x3_plain(x, w).float()).abs().max().item()
+            check_edge("conv3x3x3", dname, route, want[dtype], err, f"x {list(shape)} -> {cout}")
     torch.cuda.empty_cache()
 
 
@@ -707,17 +734,25 @@ def phase_serve(profile: bool) -> dict:
 
 def phase_conv() -> dict:
     """Kernel C's own path: the conv script's two stages (f32 check, bf16
-    checks and times at the two decoder shapes)."""
-    from multimodal_organ_segmentation_tpu_torch.ops.conv3d import conv3x3x3
+    checks and times at the two decoder shapes), with each route's launches
+    held to the count the plan predicts."""
+    import torch
+
+    from multimodal_organ_segmentation_tpu_torch.ops.conv3d import conv3x3x3, plan
     from scripts import proto_conv_kernel_torch as conv_script
 
-    conv3x3x3.launches = 0
+    # 1 f32 launch; per bf16 shape 1 checked launch, 1 warm-up and the timed ones
+    shape, cout = conv_script.SHAPE_F32
+    expect = dict.fromkeys(conv3x3x3.launches, 0)
+    expect[plan(*shape, cout, torch.float32)["route"]] += 1
+    for cin, cout in conv_script.SHAPES_BF16:
+        route = plan(conv_script.BATCH, 96, 96, 96, cin, cout, torch.bfloat16)["route"]
+        expect[route] += 2 + conv_script.REPS
+    reset_launches(conv3x3x3)
     if conv_script.main([]) != 0:
         raise SystemExit("the conv script failed")
-    launches = conv3x3x3.launches
-    # 1 f32 launch; per bf16 shape 1 checked launch, 1 warm-up and 5 timed ones
-    expect = 1 + len(conv_script.SHAPES_BF16) * 7
-    log(f"[conv] kernels {json.dumps({'conv3x3x3': launches})} expected {expect}")
+    launches = dict(conv3x3x3.launches)
+    log(f"[conv] kernels {json.dumps({'conv3x3x3': launches})} expected {json.dumps(expect)}")
     if launches != expect:
         raise SystemExit("the conv script's kernel launches differ from the count the code predicts")
     return {"conv3x3x3": launches}

@@ -7,11 +7,19 @@ launches the hand-written CUDA kernel (``csrc/conv3x3x3.cu``) on a CUDA
 tensor and runs ``conv3x3x3_plain`` on a CPU tensor. Like the JAX kernel it
 is forward only (no gradient is defined) and no model calls it: it has its
 own entry point, ``scripts/proto_conv_kernel_torch.py``.
+
+The kernel has two routes, and :func:`plan` picks one by the dtype: bf16
+takes ``"wgmma"`` (tensor cores fed by TMA through a ring of shared-memory
+stages, a persistent grid of one block per SM walking 8³-voxel tiles ×
+48 output channels), float32 takes ``"f32"`` (a direct kernel on the f32
+pipes, for exact checks). ``conv3x3x3.launches`` counts the launches of
+each route.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 import torch.nn.functional as F
@@ -19,11 +27,83 @@ import torch.nn.functional as F
 from multimodal_organ_segmentation_tpu_torch.ops import _build
 
 CHANNEL_MULTIPLE = 8  # one 16-byte load of bf16 channels
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+ROUTES = ("wgmma", "f32")
+SMEM_LIMIT = 232_448  # dynamic shared memory one block can use on Hopper (227 KB)
+H100_SMS = 132
+# the wgmma route, as csrc/conv3x3x3.cu builds it
+TILE = 8  # output tile edge, D = H = W
+CHUNK = 16  # input channels a ring stage (the wgmma depth)
+N_BLOCK = 48  # output channels a work item (the wgmma width)
+STAGES = 3
+WGMMA_THREADS = 288  # two consumer warpgroups + one producer warp
+HALO_GROUP_BYTES = (TILE + 2) ** 3 * 16  # one TMA box: 8 channels of the 10³ halo
+STAGE_BYTES = 2 * HALO_GROUP_BYTES + 27 * 2 * N_BLOCK * 16  # halo + 27 taps' weights
+F32_THREADS = 256
+_DTYPES = (torch.float32, torch.bfloat16)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_SIGNATURES = {"conv3x3x3_fwd": (_I, [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P])}
+_SIGNATURES = {
+    "conv3x3x3_fwd_wgmma": (_I, [_P, _P, _P] + [_I] * 12 + [_P]),
+    "conv3x3x3_fwd_f32": (_I, [_P, _P, _P] + [_I] * 9 + [_P]),
+}
+
+
+def plan(b: int, d: int, h: int, w: int, c: int, cout: int, dtype: torch.dtype,
+         sms: int = H100_SMS) -> dict:
+    """The route and launch plan of kernel C for one call: ``route``, ``grid``
+    (blocks), ``threads`` a block, ``tile`` (output voxels a work item along
+    D, H, W), ``stages`` of the shared-memory ring, ``nblock`` (output
+    channels a work item) and ``smem`` (dynamic shared-memory bytes);
+    the wgmma route also gives ``tiles`` (along D, H, W), ``nblocks``,
+    ``chunks`` (16-channel stages an item) and ``items``. ``sms``: the
+    card's multiprocessor count, one persistent block each.
+
+    wgmma: items are (batch element, 8³ tile, 48-channel block), walked by
+    ``min(items, sms)`` blocks, block ``i`` taking items ``i, i + grid, ...``
+    (:func:`item_origin`); three stages of ``STAGE_BYTES`` plus 256 bytes
+    of barriers and alignment. f32: one thread per output voxel and 8
+    output channels, 256 threads a block, no shared memory."""
+    if dtype == torch.bfloat16:
+        tiles = tuple(math.ceil(n / TILE) for n in (d, h, w))
+        nblocks = math.ceil(cout / N_BLOCK)
+        items = b * math.prod(tiles) * nblocks
+        return dict(route="wgmma", grid=min(items, sms), threads=WGMMA_THREADS, tile=(TILE,) * 3,
+                    stages=STAGES, nblock=N_BLOCK, smem=STAGES * STAGE_BYTES + 256, tiles=tiles,
+                    nblocks=nblocks, chunks=math.ceil(c / CHUNK), items=items)
+    if dtype == torch.float32:
+        grid = math.ceil(b * d * h * w * (cout // 8) / F32_THREADS)
+        if grid > 2**31 - 1:
+            raise ValueError(f"conv3x3x3: grid {grid} is too large")
+        return dict(route="f32", grid=grid, threads=F32_THREADS, tile=(1, 1, 1), stages=0,
+                    nblock=8, smem=0)
+    raise TypeError(f"conv3x3x3: the kernel takes float32 or bfloat16, got {dtype}")
+
+
+def item_origin(p: dict, item: int) -> tuple:
+    """``(batch, d0, h0, w0, n0)``, the first output voxel and channel of
+    work item ``item`` of a wgmma plan, decoded as the kernel decodes it
+    (channel block fastest, then W, H, D tiles, then batch)."""
+    item, nb = divmod(item, p["nblocks"])
+    item, tw = divmod(item, p["tiles"][2])
+    item, th = divmod(item, p["tiles"][1])
+    b, td = divmod(item, p["tiles"][0])
+    return b, td * TILE, th * TILE, tw * TILE, nb * N_BLOCK
+
+
+def pack_weights(w: torch.Tensor) -> torch.Tensor:
+    """w ``[3, 3, 3, C, Cout]`` re-laid for the wgmma route as
+    ``[ceil(Cout/48), ceil(C/16), 27, 2, 48, 8]``: element ``[nb, cc, tap,
+    kg, n, j]`` is ``w[tap, cc*16 + kg*8 + j, nb*48 + n]`` (taps in (kd, kh,
+    kw) order), zero past C or Cout. One (nb, cc) piece is the 41,472
+    contiguous bytes that one ring stage brings with one bulk copy, each
+    tap's [2][48][8] the wgmma's K-major B operand."""
+    c, cout = w.shape[3], w.shape[4]
+    chunks, nblocks = math.ceil(c / CHUNK), math.ceil(cout / N_BLOCK)
+    padded = w.new_zeros((27, chunks * CHUNK, nblocks * N_BLOCK))
+    padded[:, :c, :cout] = w.reshape(27, c, cout)
+    return (padded.reshape(27, chunks, 2, 8, nblocks, N_BLOCK)
+            .permute(4, 1, 0, 2, 5, 3).contiguous())
 
 
 def conv3x3x3_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -73,8 +153,8 @@ def conv3x3x3(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """SAME 3x3x3 convolution of channels-last ``x`` with ``w [3,3,3,C,Cout]``.
 
     A CPU tensor runs :func:`conv3x3x3_plain`; a CUDA tensor launches the
-    kernel or raises on anything the kernel does not take (C and Cout must
-    be multiples of 8; any D, H, W).
+    kernel on the route :func:`plan` picks, or raises on anything the
+    kernel does not take (C and Cout must be multiples of 8; any D, H, W).
     """
     if x.device.type == "cpu":
         return conv3x3x3_plain(x, w)
@@ -83,17 +163,25 @@ def conv3x3x3(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     _check_kernel_inputs(x, w)
     b, d, h, wd, c = x.shape
     cout = w.shape[-1]
-    # tap-major [27, Cout, C]: a k-pair of one output channel is one 32-bit load
-    wt = w.detach().reshape(27, c, cout).transpose(1, 2).contiguous()
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    p = plan(b, d, h, wd, c, cout, x.dtype, sms)
     out = torch.empty((b, d, h, wd, cout), dtype=x.dtype, device=x.device)
     lib = _build.load("conv3x3x3", _SIGNATURES)
-    err = lib.conv3x3x3_fwd(
-        x.data_ptr(), wt.data_ptr(), out.data_ptr(), b, d, h, wd, c, cout,
-        _DTYPES[x.dtype], x.device.index, torch.cuda.current_stream(x.device).cuda_stream,
-    )
-    _build.check(lib, err, "conv3x3x3")
-    conv3x3x3.launches += 1
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    shape = (b, d, h, wd, c, cout)
+    if p["route"] == "wgmma":
+        wp = pack_weights(w.detach())
+        err = lib.conv3x3x3_fwd_wgmma(x.data_ptr(), wp.data_ptr(), out.data_ptr(), *shape,
+                                      p["grid"], p["threads"], p["smem"], p["stages"], p["nblock"],
+                                      x.device.index, stream)
+    else:
+        # tap-major [27, Cout, C]: one output channel's inputs are contiguous
+        wt = w.detach().reshape(27, c, cout).transpose(1, 2).contiguous()
+        err = lib.conv3x3x3_fwd_f32(x.data_ptr(), wt.data_ptr(), out.data_ptr(), *shape,
+                                    p["grid"], p["threads"], x.device.index, stream)
+    _build.check(lib, err, f"conv3x3x3 ({p['route']} route)")
+    conv3x3x3.launches[p["route"]] += 1
     return out
 
 
-conv3x3x3.launches = 0
+conv3x3x3.launches = dict.fromkeys(ROUTES, 0)

@@ -2,7 +2,9 @@
 """Kernel C on an NVIDIA GPU: the hand-written CUDA 3x3x3 convolution against
 its plain PyTorch version and against cuDNN.
 
-The counterpart of ``scripts/proto_conv_kernel.py``, with its two stages:
+The counterpart of ``scripts/proto_conv_kernel.py``, with its two stages
+(each line names the kernel route the plan gives the shape, ``f32`` or
+``wgmma``; ``chip_smoke.py`` holds the launches to the plan):
 
 1. correctness in f32 at ``[2, 16, 16, 16, 8] -> 8`` against the plain
    version (27 shifted matmuls summed in f32), max error below 1e-4;
@@ -29,7 +31,10 @@ import torch.nn.functional as F
 HBM_BYTES_S = 3.35e12  # H100 SXM
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
-SHAPES_BF16 = ((96, 48), (48, 48))
+SHAPE_F32 = ((2, 16, 16, 16, 8), 8)  # (x shape, Cout)
+SHAPES_BF16 = ((96, 48), (48, 48))  # (C, Cout) of x [BATCH, 96, 96, 96, C]
+BATCH = 8
+REPS = 5  # timed calls, after one warm-up
 
 
 def make_inputs(shape, cout, dtype, seed, w_scale, device="cuda"):
@@ -72,20 +77,22 @@ def main(argv):
     if not torch.cuda.is_available():
         print("proto_conv_kernel_torch: no CUDA device", file=sys.stderr)
         return 2
-    from multimodal_organ_segmentation_tpu_torch.ops.conv3d import conv3x3x3, conv3x3x3_plain
+    from multimodal_organ_segmentation_tpu_torch.ops.conv3d import conv3x3x3, conv3x3x3_plain, plan
 
-    batch = int(argv[argv.index("--batch") + 1]) if "--batch" in argv else 8
+    batch = int(argv[argv.index("--batch") + 1]) if "--batch" in argv else BATCH
     torch.backends.cuda.matmul.allow_tf32 = False
     print(f"device: {torch.cuda.get_device_name(0)}", flush=True)
 
-    x, w = make_inputs((2, 16, 16, 16, 8), 8, torch.float32, 0, 0.1)
+    shape, cout = SHAPE_F32
+    x, w = make_inputs(shape, cout, torch.float32, 0, 0.1)
     err = (conv3x3x3(x, w) - conv3x3x3_plain(x, w)).abs().max().item()
-    print(f"f32 16^3 max err: {err:.2e}", flush=True)
+    print(f"f32 16^3 max err: {err:.2e} (route {plan(*shape, cout, x.dtype)['route']})", flush=True)
     assert err < TOL[torch.float32]
 
     for cin, cout in SHAPES_BF16:
         shape = (batch, 96, 96, 96, cin)
         x, w = make_inputs(shape, cout, torch.bfloat16, 1, 0.05)
+        route = plan(*shape, cout, x.dtype)["route"]
         out = conv3x3x3(x, w)
         torch.cuda.synchronize()
         ref = conv3x3x3_plain(x, w).float()
@@ -98,9 +105,9 @@ def main(argv):
         assert err < TOL[torch.bfloat16] * max(1.0, top)
         flops = 2 * 27 * batch * 96**3 * cin * cout
         bound, by = conv_bound_ms(shape, cout, torch.bfloat16)
-        for name, fn in (("kernel C conv3x3x3", lambda: conv3x3x3(x, w)),
+        for name, fn in ((f"kernel C conv3x3x3 ({route})", lambda: conv3x3x3(x, w)),
                          ("cuDNN F.conv3d channels-last", lambda: library_conv(x, w))):
-            ms = event_ms(fn, 5)
+            ms = event_ms(fn, REPS)
             print(f"{name:32s} {cin}->{cout} {ms:8.3f} ms  {flops / ms / 1e9:6.1f} TFLOP/s  "
                   f"(bound {bound:.3f} ms, {by})", flush=True)
         del x, w, out

@@ -20,7 +20,7 @@ def csrc_copy(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("name", _build.SOURCES)
-@pytest.mark.parametrize("header", ["common.cuh", "mma.cuh", "new_helpers.cuh"])
+@pytest.mark.parametrize("header", ["common.cuh", "mma.cuh", "wgmma.cuh", "new_helpers.cuh"])
 def test_a_header_edit_changes_every_library_path(csrc_copy, name, header):
     before = _build.library_path(name)
     assert before == _build.library_path(name)  # unchanged sources: the same library

@@ -19,6 +19,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from multimodal_organ_segmentation_tpu_torch.ops import conv3d
 from multimodal_organ_segmentation_tpu_torch.ops.conv3d import conv3x3x3, conv3x3x3_plain
 from tests.torch_port_utils import _one_thread  # noqa: F401
 
@@ -101,6 +102,66 @@ def test_bad_shapes_and_dtypes_raise():
 
 def test_launch_counter_counts_kernel_launches_only():
     x, w = (torch.from_numpy(a) for a in _inputs((1, 4, 4, 4, 8), 8))
-    before = conv3x3x3.launches
+    before = dict(conv3x3x3.launches)
+    assert set(before) == set(conv3d.ROUTES)
     conv3x3x3(x, w)
+    conv3x3x3(x.bfloat16(), w.bfloat16())
     assert conv3x3x3.launches == before  # the CPU route launches no kernel
+
+
+# Ragged shapes for the launch plan: D/H/W below, not a multiple of, and one
+# past the 8-voxel tile, a one-voxel axis; C and Cout not multiples of 16
+# and 48; batches of 1 and 3; grids cut at the SM count or not.
+PLAN_SHAPES = [
+    ((1, 5, 7, 3, 8), 8), ((3, 9, 9, 9, 24), 56), ((1, 1, 12, 17, 40), 104),
+    ((3, 16, 8, 1, 8), 56), ((1, 10, 1, 20, 24), 8), ((8, 96, 96, 96, 96), 48),
+    ((8, 96, 96, 96, 48), 48),
+]
+
+
+@pytest.mark.parametrize("shape,cout", PLAN_SHAPES)
+def test_plan_routes_and_fits(shape, cout):
+    b, d, h, w, c = shape
+    p = conv3d.plan(b, d, h, w, c, cout, torch.bfloat16)
+    assert p["route"] == "wgmma" and p["stages"] >= 2 and p["nblock"] == 48
+    assert p["smem"] <= conv3d.SMEM_LIMIT and p["smem"] >= p["stages"] * conv3d.STAGE_BYTES
+    assert p["threads"] == 288 and p["grid"] == min(p["items"], conv3d.H100_SMS)
+    assert p["chunks"] * conv3d.CHUNK >= c > (p["chunks"] - 1) * conv3d.CHUNK
+    f = conv3d.plan(b, d, h, w, c, cout, torch.float32)
+    assert f["route"] == "f32" and f["smem"] == 0
+    assert f["grid"] * f["threads"] >= b * d * h * w * cout // 8 > (f["grid"] - 1) * f["threads"]
+    with pytest.raises(TypeError):
+        conv3d.plan(b, d, h, w, c, cout, torch.float16)
+
+
+@pytest.mark.parametrize("shape,cout", PLAN_SHAPES[:5])
+@pytest.mark.parametrize("sms", [132, 5])
+def test_plan_covers_every_output_once(shape, cout, sms):
+    """Every block walks items i, i + grid, ...; the items' tiles and channel
+    blocks, cut at the tensor's edges, cover each output voxel x channel
+    exactly once."""
+    b, d, h, w, c = shape
+    p = conv3d.plan(b, d, h, w, c, cout, torch.bfloat16, sms=sms)
+    hits = np.zeros((b, d, h, w, cout), np.int32)
+    for block in range(p["grid"]):
+        for item in range(block, p["items"], p["grid"]):
+            bi, d0, h0, w0, n0 = conv3d.item_origin(p, item)
+            t = conv3d.TILE
+            hits[bi, d0:d0 + t, h0:h0 + t, w0:w0 + t, n0:n0 + p["nblock"]] += 1
+    assert (hits == 1).all()
+
+
+@pytest.mark.parametrize("c,cout", [(8, 8), (24, 56), (40, 104), (96, 48)])
+def test_pack_weights_matches_an_index_computation(c, cout):
+    w = torch.from_numpy(np.random.default_rng(c).normal(size=(3, 3, 3, c, cout)).astype(np.float32))
+    packed = conv3d.pack_weights(w)
+    nblocks, chunks = -(-cout // 48), -(-c // 16)
+    assert tuple(packed.shape) == (nblocks, chunks, 27, 2, 48, 8) and packed.is_contiguous()
+    # one (channel block, chunk) piece is one ring stage's weights
+    assert packed[0, 0].numel() * 2 == conv3d.STAGE_BYTES - 2 * conv3d.HALO_GROUP_BYTES
+    nb, cc, tap, kg, n, j = np.meshgrid(*(np.arange(s) for s in packed.shape), indexing="ij")
+    ci, co = cc * 16 + kg * 8 + j, nb * 48 + n
+    inside = (ci < c) & (co < cout)
+    flat = w.reshape(27, c, cout).numpy()
+    want = np.where(inside, flat[tap, np.minimum(ci, c - 1), np.minimum(co, cout - 1)], 0.0)
+    np.testing.assert_array_equal(packed.numpy(), want)
