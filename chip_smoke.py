@@ -39,7 +39,18 @@ Phases (any failure exits non-zero; no phase's error is caught):
    parameter, the kernels' launches per route held to the counts the plans
    predict, a forced non-finite batch skipped bit-exactly, and one f32 step
    through the kernels against one through the plain versions.
-   ``--profile`` adds a profiler pass over one train step.
+   ``--profile`` adds a profiler pass over one train step;
+7. cli     — the port's CLI (``cli.main``) on ``configs/swin_unetr_xattn_flagship.yaml``
+   at full width and depth on the card, with inputs written under
+   ``outputs/`` from the seed: ``--mode train`` for one epoch (one optimiser
+   step, micro-batch 2 × accumulation 4 of 128×128×112 CT+PET cases resized
+   to 96³ and augmented on the card, then resized-grid and native-grid
+   validation), ``--mode inference`` over a 192×192×256 and a 160×176×224
+   case (plain, then with the uncertainty map) with every mask held voxel
+   for voxel to ``sliding_window_inference`` + ``predict_labels`` +
+   postprocess on the same weights and each route's launches to the
+   runner's grid, and ``--mode eval`` on native grids with the JAX CLI's
+   keys and columns and per-case Dice equal to the library path's.
 
 The line before the last holds one JSON object ``{"kernels": [...]}``;
 the last line is ``{"ok": true, "device": {...}}``. Without a CUDA device
@@ -50,9 +61,13 @@ from __future__ import annotations
 
 import json
 import math
+import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 
@@ -104,6 +119,13 @@ FLAGSHIP = {
 }
 VOLUME = (192, 192, 256)
 N_VOLUMES = 3
+FLAGSHIP_YAML = "configs/swin_unetr_xattn_flagship.yaml"
+CLI_CASE = (128, 128, 112)  # synthetic train/val/test cases of the [cli] phase
+CLI_SPLITS = (8, 2, 2)  # one optimiser step of 2 x 4; 2 val and 2 test cases
+CLI_VOLUMES = {"flagship": VOLUME, "other": (160, 176, 224)}  # inference cases, two buckets
+# the columns the JAX CLI's native eval writes (multimodal_organ_segmentation_tpu/cli.py:200-214)
+EVAL_KEYS = ("dice", "dice_per_class", "hd95", "hd95_std", "surface_dice", "surface_dice_per_class",
+             "surface_dice_tolerance_mm", "assd", "assd_per_class", "num_cases", "per_case")
 TRAIN_STEPS = 3  # timed optimiser steps, after one warm-up step
 EMA_DECAY = 0.999  # for the skipped-step check only: the flagship trains without EMA
 
@@ -729,7 +751,7 @@ def phase_serve(profile: bool) -> dict:
         serve(volumes[1])
         log(f"[profile] one volume through the plain versions: {(time.perf_counter() - t0) * 1e3:.1f} ms")
         set_use_kernels(model, True)
-    return launches
+    return launches, mean
 
 
 def phase_conv() -> dict:
@@ -917,6 +939,260 @@ def phase_train(profile: bool) -> dict:
     return launches
 
 
+def _log_lines(path: Path, start: int) -> list:
+    """The lines a CLI run appended to its log file past ``start``."""
+    return path.read_text().splitlines()[start:] if path.exists() else []
+
+
+def _sync(device: str) -> None:
+    import torch
+
+    if device == "cuda":
+        torch.cuda.synchronize()
+
+
+def _cli(argv, device: str) -> float:
+    """One in-process run of the port's CLI; its wall seconds."""
+    from multimodal_organ_segmentation_tpu_torch import cli
+
+    t0 = time.perf_counter()
+    cli.main([*argv, "--device", device])
+    _sync(device)
+    return time.perf_counter() - t0
+
+
+def phase_cli(serve_ms: float, device: str = "cuda") -> dict:
+    """``--mode train``, ``inference`` and ``eval`` through ``cli.main`` on
+    the flagship YAML (full width and depth, augmentation on, ``--device
+    cuda``). Returns kernel A's and B's launches over the inference runs.
+    (``device="cpu"`` rehearses the phase's control flow on the CPU.)"""
+    import torch
+
+    from multimodal_organ_segmentation_tpu_torch.data.dataset import get_dataset
+    from multimodal_organ_segmentation_tpu_torch.data.synthetic import generate_synthetic_dataset
+    from multimodal_organ_segmentation_tpu_torch.data.transforms import get_transforms
+    from multimodal_organ_segmentation_tpu_torch.models.build import build_model
+    from multimodal_organ_segmentation_tpu_torch.ops.flash_attention import flash_attention
+    from multimodal_organ_segmentation_tpu_torch.ops.postprocess import postprocess_from_config
+    from multimodal_organ_segmentation_tpu_torch.ops.sliding_window import (
+        SlidingWindowRunner,
+        predict_labels,
+        sliding_window_inference,
+    )
+    from multimodal_organ_segmentation_tpu_torch.ops.window_attention import window_mha
+    from multimodal_organ_segmentation_tpu_torch.train.checkpoint import load_checkpoint
+    from multimodal_organ_segmentation_tpu_torch.train.metrics import (
+        AverageSurfaceDistance,
+        DiceMetric,
+        HausdorffDistance,
+        SurfaceDice,
+    )
+    from multimodal_organ_segmentation_tpu_torch.utils.config import load_config
+    from multimodal_organ_segmentation_tpu_torch.utils import nifti
+    from multimodal_organ_segmentation_tpu_torch.utils.io import load_nifti, save_nifti
+
+    config = load_config(FLAGSHIP_YAML)
+    seed = config.get("experiment.seed")
+    Path("outputs").mkdir(exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_cli_", dir="outputs")).resolve()
+    t0 = time.perf_counter()
+    n_train, n_val, n_test = CLI_SPLITS
+    generate_synthetic_dataset(work / "data", n_train=n_train, n_val=n_val, n_test=n_test,
+                               shape=CLI_CASE, num_classes=config.get("model.out_channels"),
+                               seed=seed)
+    rng = np.random.default_rng(seed)
+    affine = np.diag([0.9, 0.9, 1.5, 1.0])
+    for case, shape in CLI_VOLUMES.items():
+        for mod in config.get("data.modalities"):
+            save_nifti(rng.standard_normal(shape, np.float32), work / "input" / mod.lower() /
+                       f"{case}.nii.gz", affine=affine)
+    log(f"[cli] inputs under {work}: {n_train}/{n_val}/{n_test} synthetic {CLI_CASE} cases and "
+        f"{len(CLI_VOLUMES)} inference cases written in {time.perf_counter() - t0:.1f} s")
+    logs = work / "logs" / config.get("experiment.name")
+    out = work / "out" / config.get("experiment.name")
+    common = ["--config", FLAGSHIP_YAML,
+              "--set", f"data.data_root={work / 'data'}",
+              "--set", f"experiment.output_dir={work / 'out'}",
+              "--set", f"experiment.log_dir={work / 'logs'}"]
+    config.set("data.data_root", str(work / "data"))
+    if not config.get("data.augmentation.enabled"):
+        raise SystemExit("the flagship YAML no longer trains with augmentation on")
+
+    # -- train: one epoch = one optimiser step, augmentation on the card
+    wall = _cli(["--mode", "train", "--epochs", "1", "--set", "training.native_val_every=1",
+                 *common], device)
+    record = json.loads((out / "metrics.jsonl").read_text().splitlines()[-1])
+    steps = [line for line in _log_lines(logs / "train.log", 0)
+             if "| DEBUG | step " in line]
+    ok = (math.isfinite(record["train_loss"]) and (out / "last" / "tree.pt").exists()
+          and record.get("val_dice_native") is not None and len(steps) == 1)
+    log(f"[cli] train: 1 epoch in {wall * 1e3:.1f} ms of wall time ({record['seconds']} s in "
+        f"the epoch loop: the step, resized-grid and native-grid validation); "
+        f"{steps[0].split('| DEBUG | ')[-1] if steps else 'no step logged'}; train_loss "
+        f"{record['train_loss']}, val_dice {record['val_dice']}, val_dice_native "
+        f"{record.get('val_dice_native')}, last checkpoint {(out / 'last').exists()}")
+    if not ok:
+        raise SystemExit("the CLI train run gave no finite loss, no last checkpoint, no step or "
+                         "no native-grid validation")
+
+    # the transform graph alone, on the card: the train split's 8 samples.
+    # First their host-to-device copies alone, twice (the second pass reuses
+    # the first's pinned blocks), and the host transposition to C order that
+    # the copy leaves to the card (NIfTI arrays lie in Fortran order)
+    dataset = get_dataset(config, split="train")
+    raw = [dataset.load_raw(i) for i in range(len(dataset))]
+    pipe = get_transforms(config, mode="train", device=device)
+    copy_ms = []
+    for _ in range(2):
+        _sync(device)
+        t0 = time.perf_counter()
+        moved = [{k: pipe._to_device(s[k]) for k in ("image", "label")} for s in raw]
+        _sync(device)
+        copy_ms.append((time.perf_counter() - t0) * 1e3 / len(raw))
+    t0 = time.perf_counter()
+    for s in raw:
+        np.ascontiguousarray(s["image"]), np.ascontiguousarray(s["label"])
+    transpose_ms = (time.perf_counter() - t0) * 1e3 / len(raw)
+    layout = "".join("C" if raw[0][k].flags["C_CONTIGUOUS"] else
+                     "F" if raw[0][k].flags["F_CONTIGUOUS"] else "-" for k in ("image", "label"))
+    pipe(raw[0], key=pipe.key_for(1, 0))
+    _sync(device)
+    t0 = time.perf_counter()
+    for i, sample in enumerate(raw):
+        outs = pipe(sample, key=pipe.key_for(1, i))
+    _sync(device)
+    transform_ms = (time.perf_counter() - t0) * 1e3 / len(raw)
+    # then the graph on samples already on the card
+    t0 = time.perf_counter()
+    for i, sample in enumerate(moved):
+        pipe(sample, key=pipe.key_for(1, i))
+    _sync(device)
+    graph_ms = (time.perf_counter() - t0) * 1e3 / len(raw)
+    log(f"[cli] transform graph (normalise, flip, rot90, intensity, noise, resize to 96^3) on the "
+        f"card: {transform_ms:.2f} ms per {CLI_CASE}x2 sample, host-to-device copy included "
+        f"(apart: copy {copy_ms[0]:.2f} ms first pass, {copy_ms[1]:.2f} ms second; graph on "
+        f"resident samples {graph_ms:.2f} ms; host transposition to C order, not done, "
+        f"{transpose_ms:.2f} ms, image/label layout {layout}); "
+        f"out {tuple(outs['image'].shape)} {outs['image'].dtype} on {outs['image'].device}")
+    del raw, outs, moved
+
+    # -- inference: plain, then with the uncertainty map
+    sw = config.get("inference.batch_size")
+    roi = tuple(config.get("inference.sliding_window.roi_size"))
+    overlap = config.get("inference.sliding_window.overlap")
+    mode = config.get("inference.sliding_window.mode")
+    classes = config.get("model.out_channels")
+    grid = SlidingWindowRunner(None, roi, classes, overlap, sw)
+    chunks = sum(grid.grid(shape)[0].shape[0] for shape in CLI_VOLUMES.values())
+    expect = predicted_launches(sw, 2 * chunks, 2 * chunks)
+    ckpt = str(out / "last")
+    reset_launches(window_mha, flash_attention)
+    start = len(_log_lines(logs / "inference.log", 0))
+    walls = [_cli(["--mode", "inference", "--checkpoint", ckpt, "--input", str(work / "input"),
+                   "--output", str(work / "pred"), *common], device)]
+    walls.append(_cli(["--mode", "inference", "--checkpoint", ckpt, "--input",
+                       str(work / "input"), "--output", str(work / "pred_unc"),
+                       "--set", "inference.save_uncertainty=true", *common], device))
+    launches = {"window_attention": dict(window_mha.launches),
+                "flash_attention": dict(flash_attention.launches)}
+    lines = _log_lines(logs / "inference.log", start)
+    per_case = [ln.split("| INFO | ")[-1] for ln in lines if re.search(r"\| case \S+ \(", ln)]
+    totals = [ln.split("| INFO | ")[-1] for ln in lines if "| Predicted " in ln]
+    log(f"[cli] inference: 2 runs of {len(CLI_VOLUMES)} cases in "
+        f"{[round(w * 1e3, 1) for w in walls]} ms of wall time (model build and checkpoint "
+        f"load included); {'; '.join(totals)}")
+    for line in per_case:
+        log(f"[cli]   {line}")
+    log(f"[cli] inference kernels {json.dumps(launches)} expected {json.dumps(expect)} "
+        f"({chunks} chunks of {sw} tiles a run); [serve] per-volume ms {serve_ms:.1f}")
+    if launches != expect:
+        raise SystemExit("the CLI inference's kernel launches differ from the runner's grid")
+
+    # the library path on the same weights and volumes
+    tree = load_checkpoint(ckpt, map_location=device)["tree"]
+    model = build_model(config, device=device)
+    model.load_state_dict(tree["params"])
+    del tree
+    for case, shape in CLI_VOLUMES.items():
+        mods = [load_nifti(work / "input" / m.lower() / f"{case}.nii.gz", return_affine=True)
+                for m in config.get("data.modalities")]
+        in_affine = mods[0][1]
+        vol = torch.from_numpy(np.stack([m[0] for m in mods], axis=-1)).to(device)
+        with torch.no_grad():
+            ref = predict_labels(lambda v: sliding_window_inference(v, model, roi, classes, overlap,
+                                                                    sw, mode), vol)
+        ref = postprocess_from_config(ref.cpu().numpy().astype(np.uint8), config)
+        for run in ("pred", "pred_unc"):
+            img = nifti.load(str(work / run / f"{case}_pred.nii.gz"))
+            mask, kept = img.dataobj, np.array_equal(img.affine, in_affine)
+            same = mask.dtype == np.uint8 and mask.shape == shape and kept and np.array_equal(
+                mask, ref)
+            log(f"[cli] {run}/{case}_pred.nii.gz: {mask.dtype} {mask.shape}, voxels differing "
+                f"from the library path {int((mask != ref).sum()) if mask.shape == shape else 'n/a'}"
+                f", affine kept {kept}: {'ok' if same else 'FAIL'}")
+            if not same:
+                raise SystemExit(f"the CLI mask of {case} is not the library path's")
+        unc = load_nifti(work / "pred_unc" / f"{case}_unc.nii.gz")
+        log(f"[cli] pred_unc/{case}_unc.nii.gz: {unc.shape}, range [{unc.min():.4f}, "
+            f"{unc.max():.4f}]")
+        if unc.shape != shape or unc.min() < 0 or unc.max() > 1 + 1e-6:
+            raise SystemExit(f"the uncertainty map of {case} is not in [0, 1]")
+        del vol
+
+    # -- eval on native grids
+    wall = _cli(["--mode", "eval", "--checkpoint", ckpt, "--set", "evaluation.sliding_window=true",
+                 *common], device)
+    metrics = json.loads((out / "eval_native.json").read_text())
+    with open(out / "eval_native_cases.csv") as f:
+        header = f.readline().strip().split(",")
+        rows = [line.strip().split(",") for line in f if line.strip()]
+    n_cls = classes
+    cols = (["case", "dice"] + [f"dice_c{c}" for c in range(n_cls)] + ["hd95", "surface_dice"]
+            + [f"surface_dice_c{c}" for c in range(n_cls)] + ["assd"]
+            + [f"assd_c{c}" for c in range(n_cls)])
+    missing = [k for k in EVAL_KEYS if k not in metrics]
+    if missing or header != cols or len(rows) != n_test or metrics["num_cases"] != n_test:
+        raise SystemExit(f"eval_native.json or its CSV lacks the JAX CLI's keys: {missing}, "
+                         f"{header}")
+    # the library path's masks of the test cases: the same per-case Dice, and
+    # the surface metrics' host time (EDT included)
+    test = get_dataset(config, split="test",
+                       transform=get_transforms(config, mode="native", device=device))
+    surface_ms = []
+    for i, row in enumerate(metrics["per_case"]):
+        sample = test[i]
+        with torch.no_grad():
+            pred = predict_labels(lambda v: sliding_window_inference(v, model, roi, classes,
+                                                                     overlap, sw, mode),
+                                  sample["image"])
+        pred = postprocess_from_config(pred.cpu().numpy(), config)
+        label = sample["label"].cpu().numpy()
+        dm = DiceMetric(classes)
+        dm.update(pred[None], label[None])
+        spacing = tuple(np.sqrt((np.asarray(sample["affine"])[:3, :3] ** 2).sum(axis=0)).tolist())
+        t0 = time.perf_counter()
+        HausdorffDistance(95).update(pred[None], label[None], spacing=spacing)
+        cache = {}
+        SurfaceDice(classes).update(pred[None], label[None], spacing=spacing, distance_cache=cache)
+        AverageSurfaceDistance(classes).update(pred[None], label[None], spacing=spacing,
+                                               distance_cache=cache)
+        surface_ms.append((time.perf_counter() - t0) * 1e3)
+        lib_dice = [v if u > 0 else None for v, u in
+                    zip(dm.compute()["dice_per_class"], dm.union)]
+        if row["case"] != sample["patient_id"] or row["dice_per_class"] != lib_dice:
+            raise SystemExit(f"eval's per-case Dice of {row['case']} is not the library path's: "
+                             f"{row['dice_per_class']} vs {lib_dice}")
+    log(f"[cli] eval: {n_test} native {CLI_CASE} cases in {wall * 1e3:.1f} ms of wall time; "
+        f"dice {metrics['dice']:.4f} hd95 {metrics['hd95']} surface_dice "
+        f"{metrics['surface_dice']} assd {metrics['assd']}; eval_native.json has every key and "
+        f"the CSV every column of the JAX CLI; per-case Dice equal to the library path's; "
+        f"surface metrics (HD95 + NSD + ASSD, EDT included) host ms per case "
+        f"{[round(t, 1) for t in surface_ms]}")
+    del model
+    shutil.rmtree(work)
+    return launches
+
+
 def main(argv) -> int:
     import torch
 
@@ -936,11 +1212,15 @@ def main(argv) -> int:
     phase_model()
     torch.cuda.empty_cache()
     profile = "--profile" in argv
-    by_path = {"serve": phase_serve(profile)}
+    by_path = {}
+    by_path["serve"], serve_ms = phase_serve(profile)
     torch.cuda.empty_cache()
     by_path["conv"] = phase_conv()
     torch.cuda.empty_cache()
     by_path["train"] = phase_train(profile)
+    torch.cuda.empty_cache()
+    by_path["cli"] = phase_cli(serve_ms)
+    torch.cuda.empty_cache()
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     kernels = []
     for name, s in summary.items():

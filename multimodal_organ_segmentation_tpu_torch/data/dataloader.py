@@ -1,11 +1,14 @@
 """Host loader: shuffling, threaded sample loading, batching, device prefetch
 (port of the JAX package's ``data/dataloader.py``).
 
-Worker threads decode+transform samples, a bounded prefetch queue overlaps
-host IO with device compute, and batches are stacked numpy arrays.
-``device_prefetch`` moves them to the device ahead of consumption: pinned
-host memory and a non-blocking copy on a side stream. Also provides the
-pad-to-max collate the reference defines (dataloader.py:63-126).
+Worker threads decode and transform samples, and a bounded prefetch queue
+overlaps host IO with device compute. The transform graph
+(``data/transforms.py``) hands samples over as tensors on its device, and
+the collate stacks them there; samples that are still numpy arrays are
+stacked in numpy. ``device_prefetch`` moves numpy batches to the device
+ahead of consumption (pinned host memory, a non-blocking copy on a side
+stream) and passes tensors already there through. Also provides the
+pad-to-max collate.
 """
 
 from __future__ import annotations
@@ -30,14 +33,32 @@ def pad_tensors(arrays: List[np.ndarray], pad_value: float = 0.0) -> np.ndarray:
     return np.stack(out, axis=0)
 
 
+def _pad_stack(tensors: List[torch.Tensor], pad_value: float = 0.0) -> torch.Tensor:
+    """``pad_tensors`` for tensors, on their device."""
+    ndim = tensors[0].dim()
+    max_shape = [max(t.shape[i] for t in tensors) for i in range(ndim)]
+    out = []
+    for t in tensors:
+        pad = []
+        for s, m in reversed(list(zip(t.shape, max_shape))):
+            pad += [0, m - s]
+        out.append(torch.nn.functional.pad(t, pad, value=pad_value))
+    return torch.stack(out)
+
+
 def collate_fn(samples: List[Dict[str, Any]]) -> Dict[str, Any]:
-    """Stack samples into a batch; pads on shape mismatch
-    (reference: dataloader.py:63-126)."""
+    """Stack samples into a batch; pads on shape mismatch. Tensors stack on
+    their device (no round trip through the host), numpy arrays in numpy."""
     batch: Dict[str, Any] = {}
     for key in samples[0]:
         vals = [s[key] for s in samples]
         first = vals[0]
-        if hasattr(first, "shape") and hasattr(first, "dtype"):
+        if isinstance(first, torch.Tensor):
+            if len({tuple(v.shape) for v in vals}) == 1:
+                batch[key] = torch.stack(vals)
+            else:
+                batch[key] = _pad_stack(vals)
+        elif hasattr(first, "shape") and hasattr(first, "dtype"):
             vals = [np.asarray(v) for v in vals]
             if len({v.shape for v in vals}) == 1:
                 batch[key] = np.stack(vals, axis=0)
@@ -214,10 +235,10 @@ def device_prefetch(iterator, device="cuda", size: int = 2):
     stream = torch.cuda.Stream(device) if on_cuda else None
 
     def to_device(v):
-        t = torch.from_numpy(np.ascontiguousarray(v))
-        if not on_cuda:
-            return t
-        return t.pin_memory().to(device, non_blocking=True)
+        t = v if isinstance(v, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(v))
+        if on_cuda and t.device.type == "cpu":
+            t = t.pin_memory()
+        return t.to(device, non_blocking=True)  # no copy for a tensor already there
 
     def put(item) -> bool:
         while not stop.is_set():
@@ -269,24 +290,18 @@ def device_prefetch(iterator, device="cuda", size: int = 2):
 
 def get_dataloader(
     config, split: str = "train", transform=None,
-    shuffle=None, drop_last=None,
+    shuffle=None, drop_last=None, device=None,
 ) -> DataLoader:
     """Loader factory: batch size from the training config; shuffle and
-    drop_last default to train-only, overridable per call.
-
-    The transform graph (``data/transforms.py``: normalisation, resize,
-    augmentation) is not ported yet. ``data.augmentation.enabled: true``
-    raises ``NotImplementedError``; with it false and no ``transform`` given,
-    samples are handed over as stored, so the volumes on disk must already be
-    normalised and of the model's ``img_size``."""
+    drop_last default to train-only, overridable per call. Without a
+    ``transform`` the split's transform graph runs on ``device``
+    (``get_transforms(config, mode=split)``: normalisation, augmentation for
+    train, resize; the card when ``device`` is None)."""
     from multimodal_organ_segmentation_tpu_torch.data.dataset import get_dataset
+    from multimodal_organ_segmentation_tpu_torch.data.transforms import get_transforms
 
-    aug = config.get("data.augmentation", {}) or {}
-    if transform is None and bool(aug.get("enabled", False)):
-        raise NotImplementedError(
-            "data.augmentation.enabled: the transform graph (data/transforms.py) is not "
-            "ported to the PyTorch package yet; it comes with the next slice"
-        )
+    if transform is None:
+        transform = get_transforms(config, mode=split, device=device)
     dataset = get_dataset(config, split=split, transform=transform)
     is_train = split == "train"
     if shuffle is None:

@@ -1,9 +1,10 @@
 """Sliding-window inference over a volume: tile, predict, Gaussian-blend.
 
 Port of the JAX package's ``ops/sliding_window.py`` (the single-device
-``sliding_window_inference`` and ``predict_labels``). The host-side tile grid
-is the same code; the blend runs eagerly, chunk by chunk, adding each
-tile's weighted logits into f32 accumulators in place.
+``sliding_window_inference``, the shape-bucketed ``SlidingWindowRunner``,
+``predict_labels`` and ``predictive_entropy``). The host-side tile grid is
+the same code; the blend runs eagerly, chunk by chunk, adding each tile's
+weighted logits into f32 accumulators in place.
 
 Tiling contract (MONAI-compatible):
   interval_i = int(roi_i * (1 - overlap))   (roi_i if interval would be 0)
@@ -238,22 +239,134 @@ def sliding_window_inference(
             for v in volume
         ])
 
+    starts_np, valid_np = make_tile_grid(
+        _padded_shape(volume.shape[:3], roi_size), roi_size, overlap, sw_batch_size)
+    return _blend(volume, predict_fn, starts_np, valid_np, roi_size, num_classes, mode)
+
+
+def _padded_shape(shape, roi_size) -> Tuple[int, int, int]:
+    """The volume's shape padded up to at least the ROI along each axis."""
+    return tuple(max(int(n), int(r)) for n, r in zip(shape, roi_size))
+
+
+def _blend(
+    volume: torch.Tensor,
+    predict_fn: Callable[[torch.Tensor], torch.Tensor],
+    starts_np: np.ndarray,
+    valid_np: np.ndarray,
+    roi_size: Tuple[int, int, int],
+    num_classes: int,
+    mode: str,
+) -> torch.Tensor:
+    """Blended logits of one ``[H, W, D, C]`` volume over a tile grid of its
+    ROI-padded shape: pad, accumulate the chunks, normalise, crop."""
     h, w, d, _ = volume.shape
-    rh, rw, rd = roi_size
-
-    # Pad spatial dims up to at least roi
-    ph, pw, pd = max(rh - h, 0), max(rw - w, 0), max(rd - d, 0)
-    vol = torch.nn.functional.pad(volume, (0, 0, 0, pd, 0, pw, 0, ph))
-    H, W, D = h + ph, w + pw, d + pd
-
-    starts_np, valid_np = make_tile_grid((H, W, D), roi_size, overlap, sw_batch_size)
+    H, W, D = _padded_shape((h, w, d), roi_size)
+    vol = torch.nn.functional.pad(volume, (0, 0, 0, D - d, 0, W - w, 0, H - h))
     weight4 = torch.from_numpy(_blend_weight(roi_size, mode)).to(volume.device)
-
     acc, wacc = _sw_accumulate(
         vol, starts_np, valid_np, predict_fn, roi_size, num_classes, weight4
     )
     acc.div_(wacc)
     return acc[:h, :w, :d, :]
+
+
+def bucket_shape(
+    shape: Tuple[int, int, int],
+    roi_size: Tuple[int, int, int],
+    overlap: float,
+) -> Tuple[int, int, int]:
+    """Smallest canonical shape with the same per-axis tile count as
+    ``shape``: roi + interval·ceil((dim − roi)/interval). Every shape in a
+    bucket shares tile counts, so a bucket wastes no tile slots."""
+    out = []
+    for dim, roi in zip(shape, roi_size):
+        if dim <= roi:
+            out.append(roi)
+            continue
+        interval = int(roi * (1.0 - overlap)) or roi
+        out.append(roi + interval * int(math.ceil((dim - roi) / interval)))
+    return tuple(out)
+
+
+class SlidingWindowRunner:
+    """Serving front-end: shape-bucketed sliding-window inference.
+
+    The JAX runner compiles one XLA program per (bucket shape, channel
+    count, chunk count) and pads each volume to its bucket so that the
+    program serves the whole bucket; the tile starts come from the volume's
+    ORIGINAL shape, so its logits equal the unbucketed program's. Eager
+    PyTorch compiles nothing, so the pad buys nothing and is skipped: the
+    tile grid comes from the original shape and the chunk size and count
+    from the bucket (the same tile count, hence the same chunks), which
+    makes the logits those of ``sliding_window_inference`` on the original
+    shape, bit for bit. ``num_compiled`` counts the distinct (bucket,
+    channels, chunks) keys seen, the programs the JAX runner would hold.
+
+    ``predict_fn(params, patches)`` maps ``[n, *roi, C]`` patches to logits
+    with the given weights. ``mesh`` (tile chunks over devices) belongs to
+    the multi-device slice and raises.
+    """
+
+    def __init__(
+        self,
+        predict_fn: Callable,
+        roi_size: Tuple[int, int, int],
+        num_classes: int,
+        overlap: float = 0.5,
+        sw_batch_size=4,
+        mode: str = "gaussian",
+        mesh=None,
+        axis_name: str = "data",
+    ):
+        if mesh is not None:
+            raise NotImplementedError(
+                "SlidingWindowRunner over a device mesh is not ported to the PyTorch package "
+                "yet; it comes with the multi-device slice")
+        self.predict_fn = predict_fn
+        self.roi_size = tuple(int(r) for r in roi_size)
+        self.num_classes = int(num_classes)
+        self.overlap = float(overlap)
+        # "auto"/"auto:N" → per-bucket divisor search (the bucket fixes the
+        # tile count, so every volume in a bucket shares the resolved size)
+        self._sw_spec = sw_batch_size
+        self.sw_batch_size = (
+            sw_batch_size if isinstance(sw_batch_size, str) else int(sw_batch_size)
+        )
+        self.mode = str(mode)
+        self.axis_name = axis_name
+        self._keys = set()
+
+    def grid(self, shape: Tuple[int, int, int]) -> Tuple[np.ndarray, np.ndarray, tuple]:
+        """The tile grid ``(starts, valid)`` of a volume of ``shape`` and its
+        bucket key: starts from the original shape, chunk size and count
+        from the bucket."""
+        bucket = bucket_shape(shape, self.roi_size, self.overlap)
+        sw = resolve_sw_batch(self._sw_spec, bucket, self.roi_size, self.overlap)
+        b_starts, _ = make_tile_grid(bucket, self.roi_size, self.overlap, sw)
+        n_chunks = b_starts.shape[0]
+        starts_np, valid_np = make_tile_grid(
+            _padded_shape(shape, self.roi_size), self.roi_size, self.overlap, sw,
+            min_chunks=n_chunks,
+        )
+        if starts_np.shape[0] != n_chunks:
+            raise AssertionError(
+                f"bucket {bucket} chunk count {n_chunks} < the volume's "
+                f"{starts_np.shape[0]}: bucket_shape must dominate tile counts")
+        return starts_np, valid_np, (bucket, n_chunks)
+
+    @torch.no_grad()
+    def __call__(self, volume: torch.Tensor, params=None) -> torch.Tensor:
+        """``[H, W, D, C]`` volume → ``[H, W, D, num_classes]`` f32 logits."""
+        h, w, d, c = volume.shape
+        starts_np, valid_np, (bucket, n_chunks) = self.grid((h, w, d))
+        self._keys.add((bucket, c, n_chunks))
+        return _blend(volume, lambda p: self.predict_fn(params, p), starts_np, valid_np,
+                      self.roi_size, self.num_classes, self.mode)
+
+    @property
+    def num_compiled(self) -> int:
+        return len(self._keys)
 
 
 def predict_labels(
@@ -283,3 +396,13 @@ def predict_labels(
         return labels
     probs = out if already_probs else torch.softmax(out, dim=-1)
     return labels, probs
+
+
+def predictive_entropy(probs: torch.Tensor) -> torch.Tensor:
+    """Normalised predictive entropy ``[H, W, D]`` in [0, 1] from per-class
+    probabilities ``[H, W, D, C]``: ``H(p) / log C``, 0 where the model is
+    certain, 1 at a uniform posterior (with an ensemble, an ensemble
+    predictive entropy). Runs on the probabilities' device."""
+    c = probs.shape[-1]
+    h = -(probs * torch.log(probs.clamp_min(1e-12))).sum(dim=-1)
+    return h / math.log(float(c))

@@ -1,13 +1,15 @@
 """Configuration tree: a copy of the JAX package's ``utils/config.py``
-(``ConfigNode``, ``load_config``, ``default_config``).
+(``ConfigNode``, ``load_config``, ``default_config``, ``save_config``,
+``merge_config_with_args``).
 
-``yaml`` is imported inside ``load_config`` only: a config built as a
-Python dict needs no PyYAML.
+``yaml`` is imported inside the functions that read or write YAML only: a
+config built as a Python dict needs no PyYAML.
 """
 
 from __future__ import annotations
 
 import copy
+import datetime
 from pathlib import Path
 from typing import Any, Dict, Iterator, Mapping, Optional
 
@@ -119,3 +121,128 @@ def load_config(path) -> ConfigNode:
     with open(path, "r") as f:
         data = yaml.safe_load(f) or {}
     return ConfigNode(data)
+
+
+def save_config(config, path) -> None:
+    """Save config to YAML, stripping ``_``-prefixed runtime keys."""
+    import yaml
+
+    data = config.to_dict() if isinstance(config, ConfigNode) else dict(config)
+    data = {k: v for k, v in data.items() if not str(k).startswith("_")}
+    Path(path).parent.mkdir(parents=True, exist_ok=True)
+    with open(path, "w") as f:
+        yaml.safe_dump(data, f, default_flow_style=False, sort_keys=False)
+
+
+def merge_config_with_args(
+    config: ConfigNode, args, schema: Optional[ConfigNode] = None
+) -> ConfigNode:
+    """Merge CLI args into the config tree.
+
+    The experiment/hardware/training/model/modalities/analysis/
+    explainability overrides, plus a ``_args`` stash of runtime-only flags.
+
+    ``schema`` is an optional second config (the shipped default.yaml) whose
+    keys are also accepted by the strict ``--set`` check: user configs don't
+    layer over defaults, so a documented feature key may be absent from the
+    loaded file while still being a real knob the code reads via ``.get()``.
+    """
+    import yaml
+
+    mapping = {
+        "exp_name": "experiment.name",
+        "output_dir": "experiment.output_dir",
+        "seed": "experiment.seed",
+        "device": "hardware.device",
+        "num_workers": "hardware.num_workers",
+        "epochs": "training.epochs",
+        "batch_size": "training.batch_size",
+        "lr": "training.optimizer.lr",
+        "model": "model.name",
+        "fusion": "model.fusion.type",
+        "modalities": "data.modalities",
+        "pretrained": "model.pretrained",
+    }
+    for attr, path in mapping.items():
+        value = getattr(args, attr, None)
+        if value is not None:
+            config.set(path, value)
+
+    # generic dotted-path overrides (--set key=value, repeatable). Values are
+    # YAML-parsed so booleans, numbers and lists come through typed. The key
+    # must already exist in the loaded config or the schema (a typo would
+    # otherwise silently create a dead key); prefix with ``+`` to create one.
+    for kv in getattr(args, "overrides", None) or []:
+        key, sep, raw = kv.partition("=")
+        key = key.strip()
+        if not sep or not key:
+            raise ValueError(
+                f"--set expects KEY=VALUE with a dotted config path, got {kv!r}"
+            )
+        create = key.startswith("+")
+        if create:
+            key = key[1:]
+            if not key:
+                raise ValueError(
+                    f"--set expects KEY=VALUE with a dotted config path, got {kv!r}"
+                )
+        _missing = object()
+        existing = config.get(key, _missing)
+        known = existing is not _missing or (
+            schema is not None and schema.get(key, _missing) is not _missing
+        )
+        if not known and not create:
+            raise ValueError(
+                f"--set: unknown config key {key!r} (not in the loaded config"
+                f" or the default schema); check for typos, or use"
+                f" --set +{key}=... to create it"
+            )
+        try:
+            value = yaml.safe_load(raw) if raw.strip() else None
+        except yaml.YAMLError as e:
+            raise ValueError(f"--set {kv!r}: value is not valid YAML: {e}") from e
+        # YAML 1.1 coerces no/on/off to bool and 2024-01-01 to date objects;
+        # dates are never wanted as objects, and when the existing value is a
+        # string the user means a string (e.g. --set experiment.name=no).
+        if existing is _missing and schema is not None:
+            existing = schema.get(key, _missing)
+        if isinstance(value, (datetime.date, datetime.datetime)):
+            value = raw.strip()
+        elif (
+            isinstance(existing, str)
+            and value is not None
+            and not isinstance(value, str)
+        ):
+            value = raw.strip()
+        try:
+            config.set(key, value)
+        except (TypeError, AttributeError) as e:
+            parent = key.rsplit(".", 1)[0] if "." in key else key
+            raise ValueError(
+                f"--set {kv!r}: {parent!r} is not a config section"
+            ) from e
+
+    for flag, path in [
+        ("suv_analysis", "analysis.suv.enabled"),
+        ("tmtv_analysis", "analysis.tmtv.enabled"),
+        ("histogram", "analysis.histogram.enabled"),
+        ("gradcam", "explainability.gradcam.enabled"),
+        ("attention_maps", "explainability.attention_maps.enabled"),
+        ("tsne", "explainability.tsne.enabled"),
+    ]:
+        if getattr(args, flag, False):
+            config.set(path, True)
+
+    config["_args"] = {
+        "mode": getattr(args, "mode", None),
+        "input": getattr(args, "input", None),
+        "output": getattr(args, "output", None),
+        "checkpoint": getattr(args, "checkpoint", None),
+        "resume": getattr(args, "resume", None),
+        "verbose": getattr(args, "verbose", False),
+        "debug": getattr(args, "debug", False),
+        "generate_report": getattr(args, "generate_report", False),
+        "port": getattr(args, "port", None),
+        "format": getattr(args, "format", "torch"),
+    }
+    return config

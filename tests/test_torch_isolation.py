@@ -37,7 +37,9 @@ def test_port_and_chip_smoke_import_no_jax():
     pkg = "multimodal_organ_segmentation_tpu_torch"
     for new in ("ops.window_attention", "ops.conv3d", "train.losses", "train.optim",
                 "train.metrics", "train.checkpoint", "train.trainer", "data.synthetic",
-                "data.dataset", "data.dataloader", "utils.prng", "utils.io", "utils.nifti"):
+                "data.dataset", "data.dataloader", "utils.prng", "utils.io", "utils.nifti",
+                "utils.config", "utils.logger", "ops.resize", "ops.edt", "ops.postprocess",
+                "ops.sliding_window", "data.transforms", "cli", "__main__"):
         assert f"{pkg}.{new}" in mods, new
     code = (
         "import importlib, json, sys\n"

@@ -197,11 +197,12 @@ def test_freeze_for_inference_is_the_serving_model(full_run, data_root, tmp_path
 
 
 def test_later_slices_raise_by_name(data_root, tmp_path):
+    """What later slices bring raises by name: meshes, ZeRO-1, TensorBoard,
+    epoch profiles, reference-weight import, multi-process case shards. The
+    evaluation slice's parts (native eval, predict, native mid-train
+    validation, the transform graph) now run: ``test_torch_cli.py`` and
+    ``test_torch_transforms.py`` hold them to the JAX package."""
     cfg = _config(data_root, tmp_path, "later")
-    trainer = Trainer(cfg, device="cpu")
-    for call in (trainer.evaluate_native, trainer.predict):
-        with pytest.raises(NotImplementedError, match="evaluation slice"):
-            call()
     with pytest.raises(NotImplementedError, match="multi-device"):
         Trainer(cfg, device="cpu", mesh=object())
     for key, value in (("parallel.zero1", True),):
@@ -209,15 +210,25 @@ def test_later_slices_raise_by_name(data_root, tmp_path):
         bad.set(key, value)
         with pytest.raises(NotImplementedError):
             Trainer(bad, device="cpu")
-    for section, value in (("native_val_every", 1), ("checkpoint", {"monitor": "dice_native"})):
-        bad = _config(data_root, tmp_path, "later3", **{section: value})
-        t = Trainer(bad, train_loader=[], device="cpu")
+    for key, value in (("experiment.tensorboard", True), ("hardware.profile_dir", str(tmp_path))):
+        bad = _config(data_root, tmp_path, "later3")
+        bad.set(key, value)
         with pytest.raises(NotImplementedError):
-            t.train()
+            Trainer(bad, train_loader=[], device="cpu").train()
     bad = _config(data_root, tmp_path, "later4")
-    bad.set("data.augmentation", {"enabled": True})
-    with pytest.raises(NotImplementedError, match="transform"):
-        get_dataloader(bad, "train")
+    bad.set("model.pretrained", "weights.pth")
+    with pytest.raises(NotImplementedError, match="checkpoint-import"):
+        Trainer(bad, device="cpu").init_state()
+    # dice_native needs native validation, as in the JAX trainer
+    bad = _config(data_root, tmp_path, "later5", checkpoint={"monitor": "dice_native"})
+    with pytest.raises(ValueError, match="native_val_every"):
+        Trainer(bad, train_loader=[], device="cpu").train()
+    # the repaired loader: augmentation on, no transform given → the train
+    # graph runs (it raised NotImplementedError before the transforms came)
+    aug = _config(data_root, tmp_path, "later6")
+    aug.set("data.augmentation", {"enabled": True, "random_flip": True})
+    batch = next(iter(get_dataloader(aug, "train", device="cpu")))
+    assert batch["image"].shape == (1, 32, 32, 32, 2) and isinstance(batch["image"], torch.Tensor)
 
 
 def test_trainer_without_a_device_needs_cuda(data_root, tmp_path, monkeypatch):
