@@ -50,7 +50,20 @@ Phases (any failure exits non-zero; no phase's error is caught):
    for voxel to ``sliding_window_inference`` + ``predict_labels`` +
    postprocess on the same weights and each route's launches to the
    runner's grid, and ``--mode eval`` on native grids with the JAX CLI's
-   keys and columns and per-case Dice equal to the library path's.
+   keys and columns and per-case Dice equal to the library path's;
+8. models  — the other model families at full width (``MODEL_KEYS``, each its YAML file:
+   UNet3D CT 64³, UNet3D early fusion 96³, the Attention U-Net at its
+   widths, the DualEncoder with cross attention at 128³ and the
+   4-modality DualEncoder at 96³), seeded weights: one 128³ DualEncoder
+   tile through the kernels and the plain versions in f32 and bf16; each
+   configuration serves a warm-up and a timed 192×192×256 volume with its
+   own modality count, kernel B's launches held to the tile grid's plan;
+   the DualEncoder trains through the ``Trainer``'s epoch loop (micro-batch 1
+   × accumulation 8 of 128³ patches, bf16 on f32 master weights, head
+   dropout 0.1) with kernel B's launches held to the plan, gradients on
+   every fusion parameter and the dropout draws following the step's key;
+   then ``cli.main --mode inference`` on its YAML, the mask equal to the
+   library path's. Phase 2 checks kernel B at these DualEncoder shapes too.
 
 The line before the last holds one JSON object ``{"kernels": [...]}``;
 the last line is ``{"ok": true, "device": {...}}``. Without a CUDA device
@@ -142,6 +155,43 @@ def train_config(mixed_precision="bf16", accumulation_steps=None):
         cfg["training"]["accumulation_steps"] = accumulation_steps
     return cfg
 
+
+# The models phase's configurations, each configs/<key>.yaml as the port's
+# load_config reads it (``model_config``). No YAML ships an Attention U-Net:
+# it takes unet3d_earlyfusion_96's file under its own model name.
+DE128 = "dual_encoder_xattn_128"
+MODEL_KEYS = ("unet3d_ct_64", "unet3d_earlyfusion_96", "attention_unet", DE128, "full_pipeline_4mod")
+
+
+def model_config(key: str) -> dict:
+    from multimodal_organ_segmentation_tpu_torch.utils.config import load_config
+
+    source = "unet3d_earlyfusion_96" if key == "attention_unet" else key
+    cfg = load_config(Path(__file__).resolve().parent / "configs" / f"{source}.yaml").to_dict()
+    if key == "attention_unet":
+        cfg["model"]["name"] = "attention_unet"
+    return cfg
+
+
+DE128_YAML = f"configs/{DE128}.yaml"
+DE_HEADS = 4  # the DualEncoder's cross_attn_heads: its builder keeps the default
+MODELS_TRAIN_STEPS = 2  # timed DualEncoder optimiser steps, after one warm-up step
+
+
+def dual_encoder_flash_shapes(cfg: dict, tiles: int):
+    """Kernel B's launches for one forward of the DualEncoder of ``cfg`` over
+    a batch of ``tiles`` tiles: (level, B, N, heads, head dim) for each
+    pyramid level whose voxel tokens fit in ``max_tokens`` (the levels above
+    it fuse by addition)."""
+    model = cfg["model"]
+    features = model["backbone"]["features"]
+    budget = model["fusion"].get("max_tokens", 16384)
+    for level, c in enumerate(features):
+        n = math.prod(s // 2**level for s in model["backbone"]["img_size"])
+        if model["fusion"]["type"] == "cross_attention" and n <= budget:
+            yield level, tiles, n, DE_HEADS, c // DE_HEADS
+
+
 # Published peaks of one H100 SXM (dense): HBM bytes/s, bf16 tensor-core
 # FLOP/s, f32 FLOP/s outside the tensor cores, and the exponentials of the
 # special-function units (16 a clock per SM, 132 SMs, 1.98 GHz).
@@ -163,6 +213,20 @@ MODEL_TOL = 1e-3  # f32 logits after ~40 layers, each off by ~1e-6 relative
 # P.V), so each of the ~40 layers differs by a few bf16 ulp; the logits are
 # O(1). 0.25 absolute is about 30 ulp at |logit| < 2.
 MODEL_TOL_BF16 = 0.25
+
+
+def o1_scale(n: int) -> float:
+    """Factor for unit-normal v in a check of attention over n unit-normal
+    keys that keeps the outputs O(1), as ``TOL`` needs. One query's softmax
+    weights have a sum of squares of about e/n, so its outputs have a
+    standard deviation of about sqrt(e/n): 0.026 at the DualEncoder's 4096
+    tokens and 0.014 at 13824, below the bf16 limit itself. Times this
+    factor it is about 1/4, as at the flagship's /32 stage (n = 27), and
+    |out| stays below 2, where one bf16 ulp is 2**-7."""
+    return 0.25 * math.sqrt(n / math.e)
+
+
+OUT_STD_MIN = 0.1  # a check whose reference varies less than this could not tell a wrong kernel
 
 
 def log(msg: str) -> None:
@@ -329,13 +393,13 @@ def phase_kernels(flush) -> dict:
     summary = {
         "window_attention": dict(route="cuda",
                                  source="multimodal_organ_segmentation_tpu_torch/csrc/window_attention.cu",
-                                 replaces="multimodal_organ_segmentation_tpu/ops/pallas/window_attention.py:166"),
+                                 replaces="multimodal_organ_segmentation_tpu/ops/pallas/window_attention.py:28"),
         "flash_attention": dict(route="cuda",
                                 source="multimodal_organ_segmentation_tpu_torch/csrc/flash_attention.cu",
-                                replaces="multimodal_organ_segmentation_tpu/ops/pallas/flash_attention.py:138"),
+                                replaces="multimodal_organ_segmentation_tpu/ops/pallas/flash_attention.py:34"),
         "conv3x3x3": dict(route="cuda",
                           source="multimodal_organ_segmentation_tpu_torch/csrc/conv3x3x3.cu",
-                          replaces="scripts/proto_conv_kernel.py:103"),
+                          replaces="scripts/proto_conv_kernel.py:33"),
     }
     for s in summary.values():
         s.update(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0,
@@ -446,6 +510,7 @@ def phase_kernels(flush) -> dict:
             err = (outs[0].float() - ref.float()).abs().max().item()
             check_edge("flash_attention", dname, route, want, err,
                        f"B={b} Nq={nq} Nk={nk} H={heads} D={d}")
+    summary["flash_attention"]["models_shapes"] = kernels_models(routed, flush)
     kernels_conv(record, routed, check_edge, flush)
     kernels_train(summary, flush)
     for s in summary.values():
@@ -458,6 +523,66 @@ def phase_kernels(flush) -> dict:
             f"bound, library_ms {s['library_ms']:.4f}, {s['x_library']:.2f}x library")
     torch.cuda.empty_cache()
     return summary
+
+
+def kernels_models(routed, flush) -> list:
+    """Kernel B at the DualEncoder's serving shapes: each attending level of
+    the 128³ DualEncoder (2 tiles a chunk) and of the 4-modality one (4 tiles
+    a chunk), in bf16 (route ``mma``) and f32 (route ``f32``), against its
+    plain version, with the kernel's, the plain version's and
+    ``F.scaled_dot_product_attention``'s ms beside the bound. v is scaled by
+    ``o1_scale(N)`` so that the outputs are O(1), and the reference's
+    standard deviation is held above ``OUT_STD_MIN``. One row per shape and
+    type."""
+    import torch
+    import torch.nn.functional as F
+
+    from multimodal_organ_segmentation_tpu_torch.ops.attention import blockwise_attention
+    from multimodal_organ_segmentation_tpu_torch.ops.flash_attention import flash_attention
+
+    rng = np.random.default_rng(5)
+    rows = []
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).split(".")[1]
+        want = "mma" if dtype == torch.bfloat16 else "f32"
+        elt = torch.finfo(dtype).bits // 8
+        for key in (DE128, "full_pipeline_4mod"):
+            cfg = model_config(key)
+            for level, b, n, heads, d in dual_encoder_flash_shapes(cfg, cfg["inference"]["batch_size"]):
+                q, k, v = (torch.from_numpy(rng.standard_normal((b, n, heads, d), np.float32)
+                                            * (o1_scale(n) if i == 2 else 1.0)).to("cuda", dtype)
+                           for i in range(3))
+                outs = []
+                route = routed(flash_attention, lambda: outs.append(flash_attention(q, k, v)))
+                ref = blockwise_attention(q, k, v, kv_block=2048)
+                torch.cuda.synchronize()
+                err = (outs[0].float() - ref.float()).abs().max().item()
+                std = ref.float().std().item()
+                del outs, ref
+                ms = gpu_time(lambda: flash_attention(q, k, v), 10, flush)
+                plain_ms = gpu_time(lambda: blockwise_attention(q, k, v, kv_block=2048), 3, flush)
+                qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+                lib_ms = gpu_time(lambda: F.scaled_dot_product_attention(qt, kt, vt), 5, flush)
+                t_bound, by, limit = bound(4 * b * n * heads * d * elt, 4 * b * heads * n * n * d,
+                                           b * heads * n * n, dname)
+                ok = err <= TOL[dname] and route == want and std >= OUT_STD_MIN
+                log(f"[kernels] flash_attention {key} level {level} B={b} N={n} H={heads} D={d} "
+                    f"{dname} route {route}: max_abs_err {err:.3e} (tol {TOL[dname]:.0e}, reference "
+                    f"std {std:.3f}, at least {OUT_STD_MIN}) ms {ms:.4f} "
+                    f"plain_ms {plain_ms:.4f} library_ms {lib_ms:.4f} bound_ms {t_bound:.4f} ({by}: "
+                    f"{limit}) {100 * t_bound / ms:.1f}% of bound, {ms / lib_ms:.2f}x library "
+                    f"{'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise SystemExit(f"flash_attention {key} level {level} {dname}: route {route} "
+                                     f"(want {want}), reference std {std:.3f} or disagrees with its "
+                                     "plain version")
+                rows.append(dict(config=key, level=level, shape=[b, n, heads, d], dtype=dname,
+                                 route=route, max_abs_err=err, out_std=std, ms=ms, plain_ms=plain_ms,
+                                 library_ms=lib_ms, bound_ms=t_bound, bound_by=by,
+                                 bound_pct=100 * t_bound / ms, x_library=ms / lib_ms))
+                del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+    return rows
 
 
 def kernels_conv(record, routed, check_edge, flush) -> None:
@@ -555,7 +680,7 @@ def kernels_train(summary, flush) -> None:
     for s in (summary["window_attention"], summary["flash_attention"]):
         s.update(train_fwd_ms=0.0, train_bwd_ms=0.0, train_grad_max_abs_err=0.0)
 
-    def compare(name, dname, extra, out, ref, grads, ref_grads, fwd_ms, bwd_ms):
+    def compare(name, dname, extra, out, ref, grads, ref_grads, fwd_ms, bwd_ms, into_summary=True):
         err = (out.float() - ref.float()).abs().max().item()
         gerr, ok = 0.0, err <= TOL[dname]
         for g, r in zip(grads, ref_grads):
@@ -568,7 +693,7 @@ def kernels_train(summary, flush) -> None:
         if not ok:
             raise SystemExit(f"{name} {extra} {dname}: forward or gradients disagree with "
                              "autograd of the plain version")
-        if dname == "bfloat16":
+        if dname == "bfloat16" and into_summary:
             s = summary[name]
             s["train_fwd_ms"] += fwd_ms
             s["train_bwd_ms"] += bwd_ms
@@ -594,24 +719,38 @@ def kernels_train(summary, flush) -> None:
             compare("window_attention", dname,
                     f"stage {stage} BW={bw} N={n} H={heads} D={d} mask={'yes' if nw else 'no'}",
                     out, ref, grads, ref_grads, fwd_ms, bwd_ms)
-        for stage, b, n, heads, d in flash_shapes(micro):
-            q, k, v = (torch.from_numpy(rng.standard_normal((b, n, heads, d), np.float32))
-                       .to(dev, dtype).requires_grad_() for _ in range(3))
+        de_cfg = model_config(DE128)
+        de_micro = de_cfg["training"]["batch_size"]
+        flash = [(f"/{2 ** (stage + 2)}", b, n, heads, d, True)
+                 for stage, b, n, heads, d in flash_shapes(micro)]
+        flash += [(f"{DE128} level {level}", b, n, heads, d, False)
+                  for level, b, n, heads, d in dual_encoder_flash_shapes(de_cfg, de_micro)]
+        for where, b, n, heads, d, flagship in flash:
+            # the DualEncoder's token counts need v scaled for O(1) outputs
+            scales = (1.0, 1.0, 1.0 if flagship else o1_scale(n))
+            q, k, v = (torch.from_numpy(rng.standard_normal((b, n, heads, d), np.float32) * c)
+                       .to(dev, dtype).requires_grad_() for c in scales)
             out = flash_attention(q, k, v)
             go = torch.from_numpy(rng.standard_normal(tuple(out.shape), np.float32)).to(dev, dtype)
             grads = torch.autograd.grad(out, [q, k, v], go)
             ref = blockwise_attention(q, k, v, kv_block=2048)
             ref_grads = torch.autograd.grad(ref, [q, k, v], go)
             torch.cuda.synchronize()
+            extra = f"{where} B={b} N={n} H={heads} D={d}"
+            if not flagship:
+                std = ref.float().std().item()
+                extra += f" reference std {std:.3f}"
+                if std < OUT_STD_MIN:
+                    raise SystemExit(f"flash_attention train {extra}: below {OUT_STD_MIN}")
             with torch.no_grad():
                 fwd_ms = gpu_time(lambda: flash_attention(q, k, v), 10, flush)
             bwd_ms = grad_time(lambda: flash_attention(q, k, v), [q, k, v], go, 5, flush)
-            compare("flash_attention", dname, f"/{2 ** (stage + 2)} B={b} N={n} H={heads} D={d}",
-                    out, ref, grads, ref_grads, fwd_ms, bwd_ms)
+            compare("flash_attention", dname, extra, out, ref, grads, ref_grads, fwd_ms, bwd_ms,
+                    into_summary=flagship)
 
 
-def phase_model() -> None:
-    """One 96³ tile through the flagship model, through the kernels and
+def check_model(what: str, cfg: dict, x) -> None:
+    """One tile ``x`` through the model of ``cfg``, through the kernels and
     through the plain versions: in f32 (TF32 off) and in bf16, the serving
     type. Labels must agree on every voxel whose top-2 logit margin is above
     twice the logit tolerance."""
@@ -623,9 +762,9 @@ def phase_model() -> None:
     tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    x = torch.from_numpy(np.random.default_rng(1).standard_normal((1, 96, 96, 96, 2), np.float32)).cuda()
+    tile = "x".join(str(s) for s in x.shape[1:4])
     for precision, tol in (("fp32", MODEL_TOL), ("bf16", MODEL_TOL_BF16)):
-        cfg = json.loads(json.dumps(FLAGSHIP))
+        cfg = json.loads(json.dumps(cfg))
         cfg["hardware"]["mixed_precision"] = precision
         model = build_model(cfg)
         with torch.no_grad():
@@ -638,14 +777,23 @@ def phase_model() -> None:
         clear = (top2[..., 0] - top2[..., 1]) > 2 * tol
         same = kern.argmax(-1) == plain.argmax(-1)
         agree, agree_clear = same.float().mean().item(), same[clear].all().item()
-        log(f"[model] flagship {precision}, one 96^3 tile: max |logit kernels - plain| {err:.3e} "
+        log(f"[model] {what} {precision}, one {tile} tile: max |logit kernels - plain| {err:.3e} "
             f"(tol {tol:.0e}; largest |logit| {plain.abs().max().item():.2f}), label agreement "
             f"{agree:.6f}, all labels agree where the top-2 margin > {2 * tol:.0e} "
             f"({clear.float().mean().item():.4f} of voxels): {agree_clear}")
         if not (torch.isfinite(kern).all() and err <= tol and agree_clear):
-            raise SystemExit(f"the {precision} model through the kernels disagrees with the plain versions")
+            raise SystemExit(f"the {precision} {what} model through the kernels disagrees with "
+                             "the plain versions")
         del model, kern, plain
     torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+
+
+def phase_model() -> None:
+    """One 96³ tile through the flagship model (``check_model``)."""
+    import torch
+
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal((1, 96, 96, 96, 2), np.float32)).cuda()
+    check_model("flagship", FLAGSHIP, x)
 
 
 def profile_device_time(fn, what: str) -> None:
@@ -780,17 +928,17 @@ def phase_conv() -> dict:
     return {"conv3x3x3": launches}
 
 
-def training_patches(n: int, seed: int):
-    """``n`` synthetic 96³ CT+PET patches with 8-class labels from a numpy
-    seed, standardised per channel (the transform graph that normalises real
-    volumes is not ported yet)."""
+def training_patches(n: int, seed: int, cfg: dict = FLAGSHIP):
+    """``n`` synthetic CT+PET patches of the ``img_size`` of ``cfg`` with
+    8-class labels from a numpy seed, standardised per channel (the trainer
+    phases bypass the loader and its transform graph)."""
     from multimodal_organ_segmentation_tpu_torch.data.synthetic import synthetic_volume
 
     rng = np.random.default_rng(seed)
-    size = tuple(FLAGSHIP["model"]["backbone"]["img_size"])
+    size = tuple(cfg["model"]["backbone"]["img_size"])
     batches = []
     for _ in range(n):
-        image, label = synthetic_volume(size, FLAGSHIP["model"]["out_channels"], rng)
+        image, label = synthetic_volume(size, cfg["model"]["out_channels"], rng)
         image = (image - image.mean(axis=(0, 1, 2))) / image.std(axis=(0, 1, 2))
         batches.append((image.astype(np.float32), label))
     return batches
@@ -1193,6 +1341,267 @@ def phase_cli(serve_ms: float, device: str = "cuda") -> dict:
     return launches
 
 
+def planned_flash_launches(cfg: dict, tiles: int, repeat: int) -> dict:
+    """Each route's launches of kernel B when every fusion of a batch of
+    ``tiles`` tiles of the model of ``cfg`` runs ``repeat`` times, by the
+    routes the wrapper's plan gives its shapes in the config's type; {} of
+    zeros for a model without cross attention."""
+    import torch
+
+    from multimodal_organ_segmentation_tpu_torch.models.build import compute_dtype
+    from multimodal_organ_segmentation_tpu_torch.ops import flash_attention as fa
+    from multimodal_organ_segmentation_tpu_torch.utils.config import ConfigNode
+
+    counts = dict.fromkeys(fa.ROUTES, 0)
+    if cfg["model"]["name"] == "dual_encoder":
+        dtype = compute_dtype(ConfigNode(cfg))
+        for _, b, n, heads, d in dual_encoder_flash_shapes(cfg, tiles):
+            counts[fa.plan(b, n, n, heads, d, dtype)["route"]] += repeat
+    if counts["f32"] and cfg["hardware"]["mixed_precision"] == "bf16":
+        raise SystemExit(f"a bf16 fusion of {cfg['model']['name']} is planned off the tensor-core "
+                         f"route: {counts}")
+    return counts
+
+
+def models_serve(key: str, cfg: dict, rng) -> dict:
+    """``build_model`` of ``cfg`` (seeded weights), then sliding-window
+    inference + ``predict_labels`` over a warm-up and a timed 192×192×256
+    volume with one channel per modality; kernel B's launches per route held
+    to the tile grid's plan. Returns them."""
+    import torch
+
+    from multimodal_organ_segmentation_tpu_torch.models.build import build_model
+    from multimodal_organ_segmentation_tpu_torch.ops.flash_attention import flash_attention
+    from multimodal_organ_segmentation_tpu_torch.ops.sliding_window import (
+        predict_labels,
+        sliding_window_inference,
+        tile_count,
+    )
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg)
+    sw_cfg = cfg["inference"]["sliding_window"]
+    roi, overlap, mode = tuple(sw_cfg["roi_size"]), sw_cfg["overlap"], sw_cfg["mode"]
+    sw_batch = cfg["inference"]["batch_size"]
+    classes = cfg["model"]["out_channels"]
+    tiles = tile_count(VOLUME, roi, overlap)
+    chunks = math.ceil(tiles / sw_batch)
+    expect = planned_flash_launches(cfg, sw_batch, 2 * chunks)
+    channels = len(cfg["data"]["modalities"])
+    volumes = [torch.from_numpy(rng.standard_normal((*VOLUME, channels), np.float32)).cuda()
+               for _ in range(2)]
+
+    def serve(vol):
+        labels, probs = predict_labels(
+            lambda v: sliding_window_inference(v, model, roi, classes, overlap, sw_batch, mode),
+            vol, return_probs=True)
+        torch.cuda.synchronize()
+        return labels, probs
+
+    reset_launches(flash_attention)
+    t0 = time.perf_counter()
+    serve(volumes[0])
+    warm = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    labels, probs = serve(volumes[1])
+    ms = (time.perf_counter() - t0) * 1e3
+    ok = (labels.shape == VOLUME and int(labels.min()) >= 0 and int(labels.max()) < classes
+          and bool(torch.isfinite(probs).all())
+          and abs(float(probs[::16, ::16, ::16].sum(-1).mean()) - 1.0) < 1e-3)
+    launches = dict(flash_attention.launches)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[models] {key} ({cfg['model']['name']}, {cfg['hardware']['mixed_precision']}): volume "
+        f"{VOLUME}x{channels}, {tiles} tiles in {chunks} chunks of {sw_batch} ({roi[0]}^3 ROI): "
+        f"warm-up {warm:.1f} ms, per-volume ms {ms:.1f}, {60e3 / ms:.2f} volumes/min, "
+        f"max_memory_allocated {peak / 2**30:.2f} GiB; flash_attention {json.dumps(launches)} "
+        f"expected {json.dumps(expect)}")
+    if not ok:
+        raise SystemExit(f"{key}: the labels or probabilities are malformed")
+    if launches != expect:
+        raise SystemExit(f"{key}: kernel B's launches differ from the tile grid's plan")
+    return launches
+
+
+def models_train(rng) -> tuple:
+    """The 128³ DualEncoder through the ``Trainer``'s epoch loop: one warm-up
+    optimiser step, then timed steps, of micro-batch 1 × accumulation 8
+    (its YAML's), bf16 on f32 master weights, AdamW, ``dice_ce``, head
+    dropout 0.1. Returns (kernel B's launches, the trainer)."""
+    import copy
+
+    import torch
+
+    from multimodal_organ_segmentation_tpu_torch.ops.flash_attention import flash_attention
+    from multimodal_organ_segmentation_tpu_torch.train.trainer import Trainer, _dropout_active
+    from multimodal_organ_segmentation_tpu_torch.utils.prng import KeyStream
+
+    cfg = model_config(DE128)
+    micro = cfg["training"]["batch_size"]
+    accum = cfg["training"]["accumulation_steps"]
+    patches = training_patches(micro * accum, cfg["experiment"]["seed"], cfg)
+    loader = [{"image": np.stack([p[0] for p in patches[i:i + micro]]),
+               "label": np.stack([p[1] for p in patches[i:i + micro]])}
+              for i in range(0, len(patches), micro)]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    trainer = Trainer(cfg, train_loader=loader)
+    trainer.init_state()
+    model = trainer.model
+    if not (model.training and model.dtype == torch.bfloat16 and _dropout_active(model)
+            and all(p.dtype == torch.float32 for p in model.parameters())):
+        raise SystemExit("the DualEncoder trainer's model is not bf16 compute on f32 master "
+                         "weights with its head dropout")
+    steps = 1 + MODELS_TRAIN_STEPS
+    expect = planned_flash_launches(cfg, micro, accum * steps)
+
+    reset_launches(flash_attention)
+    t0 = time.perf_counter()
+    trainer._train_epoch(trainer.scheduler.lr_for_epoch(0))
+    torch.cuda.synchronize()
+    warm = (time.perf_counter() - t0) * 1e3
+    losses, norms, times = list(trainer.last_step_losses), [], []
+    step = trainer.train_step_fn()
+    images, labels = trainer._stack_accum(loader)
+    for _ in range(MODELS_TRAIN_STEPS):
+        t0 = time.perf_counter()
+        _, metrics = step(trainer.state, images, labels, trainer.keys.next())
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(metrics["loss"]))
+        norms.append(float(metrics["grad_norm"]))
+    launches = dict(flash_attention.launches)
+    peak = torch.cuda.max_memory_allocated()
+    mean = sum(times) / len(times)
+    log(f"[models] {DE128} train: micro-batch {micro} x accumulation {accum} of "
+        f"{cfg['model']['backbone']['img_size'][0]}^3 patches: "
+        f"warm-up step through the epoch loop {warm:.1f} ms, per-step ms "
+        f"{[round(t, 1) for t in times]}, mean {mean:.1f} ms/step, "
+        f"{micro * accum * 1e3 / mean:.2f} patches/s, max_memory_allocated {peak / 2**30:.2f} GiB; "
+        f"losses {[round(v, 4) for v in losses]}, grad_norm {[round(g, 4) for g in norms]}; "
+        f"flash_attention {json.dumps(launches)} expected {json.dumps(expect)} "
+        f"({sum(expect.values()) // steps} a step)")
+    if not all(math.isfinite(v) for v in losses + norms):
+        raise SystemExit("a DualEncoder train step gave a non-finite loss or grad_norm")
+    if launches != expect:
+        raise SystemExit("the DualEncoder train path's kernel B launches differ from the plan")
+
+    # gradients reach every fusion parameter through kernel B
+    model.zero_grad(set_to_none=True)
+    trainer.loss_fn(model(images[0]), labels[0]).backward()
+    fusion = [(n, p) for n, p in model.named_parameters() if n.startswith("fusion_")]
+    for name, p in fusion:
+        if p.grad is None or not bool(torch.isfinite(p.grad).all()) or float(p.grad.abs().max()) == 0:
+            raise SystemExit(f"no gradient reaches {name}")
+    model.zero_grad(set_to_none=True)
+
+    # the channel-dropout draws follow the step's key: two steps from one
+    # state with one key give equal losses, another key another loss
+    weights = copy.deepcopy(model.state_dict())
+    moments = copy.deepcopy(trainer.state.optimizer.state_dict())
+    key_losses = []
+    for counter in (7, 7, 8):
+        _, metrics = step(trainer.state, images, labels, KeyStream(11, counter=counter).next())
+        key_losses.append(float(metrics["loss"]))
+        model.load_state_dict(weights)
+        trainer.state.optimizer.load_state_dict(copy.deepcopy(moments))
+    log(f"[models] {DE128} train: non-zero finite gradients on all {len(fusion)} fusion "
+        f"parameters; one state, keys (7, 7, 8): losses {key_losses}")
+    if not (key_losses[0] == key_losses[1] != key_losses[2]):
+        raise SystemExit("the DualEncoder's dropout draws do not follow the step's key")
+    return launches, trainer
+
+
+def models_cli(trainer, rng) -> dict:
+    """``cli.main --mode inference`` on the 128³ DualEncoder's YAML over one
+    192×192×256 case, from the trained state's checkpoint; the mask equal
+    to ``sliding_window_inference`` + ``predict_labels`` + postprocess on the
+    same weights voxel for voxel, kernel B's launches to the tile grid."""
+    import torch
+
+    from multimodal_organ_segmentation_tpu_torch.models.build import build_model
+    from multimodal_organ_segmentation_tpu_torch.ops.flash_attention import flash_attention
+    from multimodal_organ_segmentation_tpu_torch.ops.postprocess import postprocess_from_config
+    from multimodal_organ_segmentation_tpu_torch.ops.sliding_window import (
+        predict_labels,
+        sliding_window_inference,
+        tile_count,
+    )
+    from multimodal_organ_segmentation_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
+    from multimodal_organ_segmentation_tpu_torch.utils import nifti
+    from multimodal_organ_segmentation_tpu_torch.utils.config import load_config
+    from multimodal_organ_segmentation_tpu_torch.utils.io import load_nifti, save_nifti
+
+    config = load_config(DE128_YAML)
+    Path("outputs").mkdir(exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_models_", dir="outputs")).resolve()
+    save_checkpoint(trainer.state.tree(), work / "ckpt")
+    affine = np.diag([0.9, 0.9, 1.5, 1.0])
+    for mod in config.get("data.modalities"):
+        save_nifti(rng.standard_normal(VOLUME, np.float32), work / "input" / mod.lower() / "case.nii.gz",
+                   affine=affine)
+    roi = tuple(config.get("inference.sliding_window.roi_size"))
+    overlap = config.get("inference.sliding_window.overlap")
+    sw = config.get("inference.batch_size")
+    chunks = math.ceil(tile_count(VOLUME, roi, overlap) / sw)
+    expect = planned_flash_launches(config.to_dict(), sw, chunks)
+    reset_launches(flash_attention)
+    wall = _cli(["--mode", "inference", "--config", DE128_YAML, "--checkpoint", str(work / "ckpt"),
+                 "--input", str(work / "input"), "--output", str(work / "pred"),
+                 "--set", f"experiment.output_dir={work / 'out'}",
+                 "--set", f"experiment.log_dir={work / 'logs'}"], "cuda")
+    launches = dict(flash_attention.launches)
+
+    model = build_model(config)
+    model.load_state_dict(load_checkpoint(work / "ckpt", map_location="cuda")["tree"]["params"])
+    vol = torch.from_numpy(np.stack([load_nifti(work / "input" / m.lower() / "case.nii.gz")
+                                     for m in config.get("data.modalities")], axis=-1)).cuda()
+    with torch.no_grad():
+        ref = predict_labels(lambda v: sliding_window_inference(
+            v, model, roi, config.get("model.out_channels"), overlap, sw,
+            config.get("inference.sliding_window.mode")), vol)
+    ref = postprocess_from_config(ref.cpu().numpy().astype(np.uint8), config)
+    mask = nifti.load(str(work / "pred" / "case_pred.nii.gz")).dataobj
+    same = mask.dtype == np.uint8 and mask.shape == VOLUME and np.array_equal(mask, ref)
+    log(f"[models] {DE128} cli: --mode inference over one {VOLUME} case in {wall * 1e3:.1f} ms of "
+        f"wall time (model build and checkpoint load included); mask {mask.dtype} {mask.shape}, "
+        f"voxels differing from the library path "
+        f"{int((mask != ref).sum()) if mask.shape == VOLUME else 'n/a'}: {'ok' if same else 'FAIL'}; "
+        f"flash_attention {json.dumps(launches)} expected {json.dumps(expect)}")
+    if not same:
+        raise SystemExit("the DualEncoder's CLI mask is not the library path's")
+    if launches != expect:
+        raise SystemExit("the DualEncoder CLI inference's kernel B launches differ from the grid")
+    del model, vol
+    shutil.rmtree(work)
+    return launches
+
+
+def phase_models() -> dict:
+    """The other model families on the card: the 128³ DualEncoder tile check,
+    serving every configuration of ``MODEL_KEYS``, the DualEncoder's training and its
+    CLI inference. Returns kernel B's launches over all of them."""
+    import torch
+
+    cfg = model_config(DE128)
+    x = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        (1, *cfg["model"]["backbone"]["img_size"], 2), np.float32)).cuda()
+    check_model(DE128, cfg, x)
+    del x
+    rng = np.random.default_rng(cfg["experiment"]["seed"])
+    total = {}
+    runs = [models_serve(key, model_config(key), rng) for key in MODEL_KEYS]
+    launches, trainer = models_train(rng)
+    runs.append(launches)
+    runs.append(models_cli(trainer, rng))
+    del trainer
+    torch.cuda.empty_cache()
+    for run in runs:
+        for route, n in run.items():
+            total[route] = total.get(route, 0) + n
+    return {"flash_attention": total}
+
+
 def main(argv) -> int:
     import torch
 
@@ -1220,6 +1629,8 @@ def main(argv) -> int:
     by_path["train"] = phase_train(profile)
     torch.cuda.empty_cache()
     by_path["cli"] = phase_cli(serve_ms)
+    torch.cuda.empty_cache()
+    by_path["models"] = phase_models()
     torch.cuda.empty_cache()
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     kernels = []

@@ -20,8 +20,8 @@ Differences from the flax module, all forced by eager PyTorch:
 - ``scan_blocks`` (one ``lax.scan`` body per stage) is the same math as
   unrolled blocks, so both build unrolled blocks here; ``convert`` unstacks
   a stacked JAX tree;
-- ``monai_compat``, ``deep_supervision``, ``enable_perturb`` and tensor
-  parallelism are not ported yet and raise.
+- ``monai_compat``, ``enable_perturb`` and tensor parallelism are not
+  ported yet and raise.
 """
 
 from __future__ import annotations
@@ -41,6 +41,14 @@ from multimodal_organ_segmentation_tpu_torch.models.layers import (
     LayerNorm,
     Linear,
     Norm3D,
+    cf,
+    conv_cl,
+    logits_out,
+    supervised_outputs,
+)
+from multimodal_organ_segmentation_tpu_torch.utils.config import (
+    deep_supervision,
+    refuse_tensor_parallel,
 )
 from multimodal_organ_segmentation_tpu_torch.ops.window_attention import window_mha
 
@@ -120,11 +128,6 @@ def _clamped_window(window: Sequence[int], grid: Sequence[int]) -> Window:
 def _shift_for(window: Window, grid: Sequence[int]) -> Window:
     """Swin rule: half-window shift, none along an axis the window covers."""
     return tuple(w // 2 if w < g else 0 for w, g in zip(window, grid))
-
-
-def _conv_cl(conv: nn.Module, x: torch.Tensor) -> torch.Tensor:
-    """Apply a channels-first conv to a channels-last volume (views, no copy)."""
-    return conv(x.permute(0, 4, 1, 2, 3)).permute(0, 2, 3, 4, 1)
 
 
 # ---------------------------------------------------------------------------
@@ -353,6 +356,7 @@ class SwinUNETR(nn.Module):
         modality_fusion: Optional[str] = None,
         fusion_stages: Sequence[int] = (0, 1, 2, 3),
         use_remat: bool = False,
+        deep_supervision: bool = False,
     ):
         super().__init__()
         if any(s % 32 for s in img_size):
@@ -402,6 +406,10 @@ class SwinUNETR(nn.Module):
         self.decoder2 = UnetrUpBlock(fs * 2, fs, norm)
         self.decoder1 = UnetrUpBlock(fs, fs, norm)
         self.out_conv = Conv3d(fs, out_channels, 1)
+        self.deep_supervision = deep_supervision
+        if deep_supervision:  # f32 1×1 heads on d1 (/2) and d2 (/4)
+            self.ds_head0 = Conv3d(fs, out_channels, 1)
+            self.ds_head1 = Conv3d(fs * 2, out_channels, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if tuple(x.shape[1:4]) != self.img_size or x.shape[-1] != self.in_channels:
@@ -410,10 +418,10 @@ class SwinUNETR(nn.Module):
         x = x.to(self.dtype)
         inp = x
 
-        y = _conv_cl(self.patch_embed, x)
+        y = conv_cl(self.patch_embed, x)
         hidden: List[torch.Tensor] = []
         if self.xfuse:
-            aux = F.gelu(_conv_cl(self.aux_embed, x[..., 1:]))
+            aux = F.gelu(conv_cl(self.aux_embed, x[..., 1:]))
         for stage in range(4):
             for bi in range(self.depths[stage]):
                 block = getattr(self, f"stage{stage}_block{bi}")
@@ -426,13 +434,10 @@ class SwinUNETR(nn.Module):
             hidden.append(y)  # tap pre-merge (native wiring)
             y = getattr(self, f"merge{stage}")(y)
             if self.xfuse:
-                aux = F.gelu(_conv_cl(getattr(self, f"aux_down{stage}"), aux))
+                aux = F.gelu(conv_cl(getattr(self, f"aux_down{stage}"), aux))
                 if stage in self.fusion_stages:
                     y = getattr(self, f"xfuse{stage}")(y, aux)
         hidden.append(y)  # bottleneck 16fs @ /32
-
-        def cf(t):  # channels-last → channels-first view
-            return t.permute(0, 4, 1, 2, 3)
 
         enc0 = self.encoder0(cf(inp))
         enc1 = self.encoder1(cf(hidden[0]))
@@ -446,8 +451,11 @@ class SwinUNETR(nn.Module):
         d2 = self.decoder3(d3, enc2)
         d1 = self.decoder2(d2, enc1)
         d0 = self.decoder1(d1, enc0)
-        logits = self.out_conv(d0.float())  # f32 logits, as the JAX model's
-        return logits.permute(0, 2, 3, 4, 1)
+        logits = logits_out(self.out_conv, d0)  # f32 logits, as the JAX model's
+        if self.deep_supervision and self.training:
+            return supervised_outputs(logits, [logits_out(self.ds_head0, d1),
+                                               logits_out(self.ds_head1, d2)])
+        return logits
 
 
 def set_use_kernels(model: nn.Module, use_kernels: bool) -> None:
@@ -466,15 +474,10 @@ def build_swin_unetr(config, dtype: torch.dtype = torch.float32) -> SwinUNETR:
     ftype = str(fusion.get("type", "early")).lower()
     modalities = config.get("data.modalities", ["CT", "PET"])
     modality_fusion = "cross_attention" if (ftype == "cross_attention" and len(modalities) >= 2) else None
-    for key, why in (
-        ("model.backbone.monai_compat", backbone.get("monai_compat", False)),
-        ("model.enable_perturb", config.get("model.enable_perturb", False)),
-        ("model.head.type=deep_supervision",
-         str(config.get("model.head.type", "conv")) == "deep_supervision"),
-        ("parallel.tp_axis / parallel.mesh.model > 1", _config_tp_axis(config)),
-    ):
-        if why:
-            raise NotImplementedError(f"{key} is not ported to the PyTorch package yet")
+    if backbone.get("monai_compat", False):
+        raise NotImplementedError("model.backbone.monai_compat is not ported to the PyTorch "
+                                  "package yet")
+    refuse_tensor_parallel(config)
     stages = fusion.get("stages") if hasattr(fusion, "get") else None
     return SwinUNETR(
         in_channels=int(config.get("model.in_channels", len(modalities))),
@@ -491,14 +494,5 @@ def build_swin_unetr(config, dtype: torch.dtype = torch.float32) -> SwinUNETR:
         # stages: [] is a legitimate "no per-stage fusion" request — only
         # an ABSENT key falls back to all stages
         fusion_stages=tuple(stages) if stages is not None else (0, 1, 2, 3),
+        deep_supervision=deep_supervision(config),
     )
-
-
-def _config_tp_axis(config) -> Optional[str]:
-    """Tensor-parallel axis the config asks for (the JAX package's
-    ``parallel.mesh.config_tp_axis``)."""
-    tp = config.get("parallel.tp_axis", None)
-    if tp:
-        return str(tp)
-    mesh_cfg = config.get("parallel.mesh", {}) or {}
-    return "model" if int(dict(mesh_cfg).get("model", 1) or 1) > 1 else None

@@ -118,7 +118,17 @@ def select_infer_params(state: TrainState, config) -> Params:
 
 
 def _dropout_active(model: nn.Module) -> bool:
-    return any(isinstance(m, nn.Dropout) and m.p > 0 for m in model.modules())
+    """Any dropout with p > 0: element (``nn.Dropout``) or channel
+    (``Dropout3D``, an ``nn.Dropout3d``); every torch dropout derives from
+    ``_DropoutNd``."""
+    return any(isinstance(m, nn.modules.dropout._DropoutNd) and m.p > 0 for m in model.modules())
+
+
+def _running_buffers(model: nn.Module) -> List[torch.Tensor]:
+    """The buffers a forward pass updates in place and a checkpoint saves:
+    the batch norms' running statistics (every persistent floating buffer)."""
+    saved = model.state_dict(keep_vars=True)
+    return [b for name, b in model.named_buffers() if name in saved and b.is_floating_point()]
 
 
 def make_train_step(
@@ -128,11 +138,14 @@ def make_train_step(
     """Build the train step.
 
     images ``[accum, micro, H, W, D, C]``, labels ``[accum, micro, H, W, D]``.
-    ``skip_nonfinite`` drops the update (params, optimiser state and EMA keep
-    their previous values) when the loss or any gradient is non-finite — one
-    bad batch on a long run must not poison the Adam moments. The step still
-    advances and ``metrics["skipped"]`` reports 1.0 so the host loop can log
-    it; the test costs one host sync a step.
+    ``skip_nonfinite`` drops the update (params, optimiser state, EMA and the
+    batch norms' running statistics keep their previous values) when the loss
+    or any gradient is non-finite — one bad batch on a long run must not
+    poison the Adam moments. The running statistics move during the forward
+    passes, so they are copied before the micro-batches and put back (the
+    JAX step keeps its old ``state.extra``). The step still advances and
+    ``metrics["skipped"]`` reports 1.0 so the host loop can log it; the test
+    costs one host sync a step.
     ``ema_decay`` maintains ``state.ema_params`` as an exponential moving
     average of the params (``e ← d·e + (1−d)·p``, initialised to the initial
     params so no debias term is needed).
@@ -142,6 +155,7 @@ def make_train_step(
     """
     params = [p for p in model.parameters() if p.requires_grad]
     dropout = _dropout_active(model)
+    running = _running_buffers(model) if skip_nonfinite else []
 
     @contextlib.contextmanager
     def micro_rng(key, i, device):
@@ -160,6 +174,7 @@ def make_train_step(
                              f"{images.shape[0]}")
         model.train()
         optimizer.zero_grad()
+        running_before = [b.clone() for b in running]
         loss_sum = torch.zeros((), dtype=torch.float32, device=images.device)
         for i in range(accum_steps):
             with micro_rng(key, i, images.device):
@@ -176,6 +191,10 @@ def make_train_step(
             # grad_norm is finite iff every gradient element is
             ok = bool(torch.isfinite(metrics["loss"]) & torch.isfinite(gnorm))
             metrics["skipped"] = torch.tensor(0.0 if ok else 1.0)
+            if not ok:
+                with torch.no_grad():
+                    for b, before in zip(running, running_before):
+                        b.copy_(before)
         if ok:
             optimizer.step(grad_norm=gnorm)
             if ema_decay is not None and state.ema_params is not None:

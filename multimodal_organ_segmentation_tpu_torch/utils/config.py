@@ -246,3 +246,26 @@ def merge_config_with_args(
         "format": getattr(args, "format", "torch"),
     }
     return config
+
+
+def config_tp_axis(config) -> Optional[str]:
+    """The tensor-parallel mesh axis a config asks for (the JAX package's
+    ``parallel.mesh.config_tp_axis``): ``parallel.tp_axis`` when set, else
+    "model" when ``parallel.mesh.model`` > 1, else None."""
+    tp = config.get("parallel.tp_axis", None)
+    if tp:
+        return str(tp)
+    mesh_cfg = config.get("parallel.mesh", {}) or {}
+    return "model" if int(dict(mesh_cfg).get("model", 1) or 1) > 1 else None
+
+
+def deep_supervision(config) -> bool:
+    return str(config.get("model.head.type", "conv")) == "deep_supervision"
+
+
+def refuse_tensor_parallel(config) -> None:
+    """Tensor parallelism belongs to the multi-device slice."""
+    if config_tp_axis(config):
+        raise NotImplementedError(
+            "parallel.tp_axis / parallel.mesh.model > 1 (tensor parallelism) is not ported to "
+            "the PyTorch package yet; it comes with the multi-device slice")

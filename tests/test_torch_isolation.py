@@ -39,7 +39,8 @@ def test_port_and_chip_smoke_import_no_jax():
                 "train.metrics", "train.checkpoint", "train.trainer", "data.synthetic",
                 "data.dataset", "data.dataloader", "utils.prng", "utils.io", "utils.nifti",
                 "utils.config", "utils.logger", "ops.resize", "ops.edt", "ops.postprocess",
-                "ops.sliding_window", "data.transforms", "cli", "__main__"):
+                "ops.sliding_window", "data.transforms", "cli", "__main__", "models.unet3d",
+                "models.attention_unet", "models.heads", "models.dual_encoder"):
         assert f"{pkg}.{new}" in mods, new
     code = (
         "import importlib, json, sys\n"

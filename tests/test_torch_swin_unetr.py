@@ -225,27 +225,52 @@ def test_scan_tree_converts_to_the_unrolled_state():
 
 
 def test_unported_options_raise():
+    """monai_compat, the perturb points and tensor parallelism raise; deep
+    supervision builds (``test_deep_supervision_matches_flax``), and so does
+    every other model of the registry: only an unknown name raises."""
     for key, value in (("monai_compat", True),):
         cfg = _model_config()
         cfg["model"]["backbone"][key] = value
         with pytest.raises(NotImplementedError):
             build_model(cfg, device="cpu")
     cfg = _model_config()
-    cfg["model"]["head"]["type"] = "deep_supervision"
-    with pytest.raises(NotImplementedError):
-        build_model(cfg, device="cpu")
-    cfg = _model_config()
     cfg["model"]["enable_perturb"] = True
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="explainability"):
         build_model(cfg, device="cpu")
     cfg = _model_config()
     cfg["parallel"] = {"mesh": {"data": 1, "model": 2}}
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="multi-device"):
         build_model(cfg, device="cpu")
     cfg = _model_config()
-    cfg["model"]["name"] = "unet3d"
-    with pytest.raises(NotImplementedError):
+    cfg["model"]["name"] = "unet4d"
+    with pytest.raises(ValueError, match="Unknown model"):
         build_model(cfg, device="cpu")
+
+
+def test_deep_supervision_matches_flax():
+    """``model.head.type: deep_supervision``: in training the logits and the
+    /2 and /4 aux heads upsampled to the tile, as the flax model returns
+    them; in eval the logits alone."""
+    cfg = _model_config()
+    cfg["model"]["head"]["type"] = "deep_supervision"
+    x = _normal((1, 32, 32, 32, 2), 15)
+    flax_mod = jswin.build_swin_unetr(_config_node(cfg))
+    variables = seeded_variables(flax_mod, x, train=False, seed=16)
+    assert {"ds_head0", "ds_head1"} <= set(variables["params"])
+    ref = jax.jit(lambda v, x: flax_mod.apply(v, x, train=True))(variables, x)
+
+    model = build_model(cfg, device="cpu", train=True)
+    model.load_state_dict(convert.swin_unetr_params_from_jax(variables))
+    with torch.no_grad():
+        outs = model(port(x))
+        assert len(outs) == len(ref) == 3
+        for out, r in zip(outs, ref):
+            assert out.dtype == torch.float32 and out.shape == (1, 32, 32, 32, 8)
+            np.testing.assert_allclose(as_np(out), np.asarray(r), rtol=MODEL_TOL, atol=MODEL_TOL)
+        logits = model.eval()(port(x))
+    np.testing.assert_array_equal(as_np(logits), as_np(outs[0]))
+    back = convert.swin_unetr_params_to_jax(model.state_dict())
+    np.testing.assert_array_equal(back["ds_head1"]["kernel"], variables["params"]["ds_head1"]["kernel"])
 
 
 def _config_node(d):
