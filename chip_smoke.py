@@ -16,8 +16,8 @@ Phases (any failure exits non-zero; no phase's error is caught):
    bound and its ratio to the library call: the attention kernels at the
    serving shapes (forward; bf16 must take the tensor-core route ``mma``,
    f32 the ``f32`` route) and at the edge shapes of their tilings, and at
-   the training shapes (forward + backward through their
-   ``autograd.Function``s against autograd of the plain versions), the
+   the training shapes (forward + backward through their custom ops'
+   ``register_autograd`` gradients against autograd of the plain versions), the
    convolution at its script's shapes and at the edge shapes of its
    tiling (bf16 must take the ``wgmma`` route, f32 the ``f32`` route);
 3. model   — one 96³ tile through the flagship model in f32 (TF32 off) and
@@ -63,7 +63,25 @@ Phases (any failure exits non-zero; no phase's error is caught):
    dropout 0.1) with kernel B's launches held to the plan, gradients on
    every fusion parameter and the dropout draws following the step's key;
    then ``cli.main --mode inference`` on its YAML, the mask equal to the
-   library path's. Phase 2 checks kernel B at these DualEncoder shapes too.
+   library path's. Phase 2 checks kernel B at these DualEncoder shapes too;
+9. http    — the HTTP service (``serving/server.py``) on the flagship at full
+   width from a port checkpoint of a seeded init: ``make_server`` on an
+   OS-assigned port, ``/v1/warmup`` at 192×192×256, four ``/v1/segment``
+   requests on one synthetic CT+PET case (two of them concurrent, one with
+   the uncertainty map), ``/v1/stats``; every mask equal to the library
+   path's voxel for voxel, kernel A's and B's launches to the plan (all
+   ``mma``); then ``--mode serve`` in a process of its own: one request,
+   SIGTERM, exit 0;
+10. tune   — ``--mode tune`` on the flagship: 192×192×256, overlaps 0.5
+   and 0.25 × chunks of 8 and 15 tiles, one timed run each; every
+   candidate's volumes/min, the written profile, the launches to the plan;
+11. export — ``--mode export --format pt2`` of the [http] checkpoint, the
+   program loaded here and served by ``InferenceService``: its mask equal
+   to the checkpoint-served one, kernels A and B launched through the
+   program's custom ops as planned; then ``--format torch`` of a
+   ``monai_compat`` SwinUNETR (fs 48, depths 2-2-2-2) and ``--pretrained``
+   of that ``.pth``: the weights carried exactly, one 96³ tile through
+   kernel A against the plain path in f32 and bf16.
 
 The line before the last holds one JSON object ``{"kernels": [...]}``;
 the last line is ``{"ok": true, "device": {...}}``. Without a CUDA device
@@ -198,6 +216,8 @@ def dual_encoder_flash_shapes(cfg: dict, tiles: int):
 HBM_BYTES_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 EXP_S = 16 * 132 * 1.98e9
+SPIN_CYCLES = 200_000  # the card's spin before each timed call: about 0.1 ms at 1.98 GHz
+SPIN_CYCLES_MAX = 256 * SPIN_CYCLES  # gpu_time doubles the spin up to this (about 25 ms), then fails
 
 # |kernel - plain| limits. f32: both sum in f32 in another order and the
 # kernel uses the fast exponential (a few ulp); outputs are O(1). bf16: both
@@ -235,20 +255,35 @@ def log(msg: str) -> None:
 
 def gpu_time(fn, reps: int, flush) -> float:
     """Mean device ms of ``fn`` over ``reps`` calls, each after the L2 is
-    overwritten (the main path finds the kernel's inputs cold)."""
+    overwritten (the main path finds the kernel's inputs cold) and a spin of
+    the card: the host dispatches ``fn`` (the attention wrappers are custom
+    ops, about 70 us of host time a call) while the card is still busy, so,
+    as on the main path where the host runs ahead, the dispatch falls
+    outside the timed events. A call that the card reached before the host
+    had queued all of it (the start event already passed once ``fn``
+    returns) is not counted: the spin doubles and the call is timed again,
+    and past ``SPIN_CYCLES_MAX`` the run fails."""
     import torch
 
     fn()  # warm-up
-    total = 0.0
-    for _ in range(reps):
+    spin, times = SPIN_CYCLES, []
+    while len(times) < reps:
         flush.zero_()
+        torch.cuda._sleep(spin)
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         fn()
+        late = start.query()
         end.record()
         end.synchronize()
-        total += start.elapsed_time(end)
-    return total / reps
+        if not late:
+            times.append(start.elapsed_time(end))
+        elif spin < SPIN_CYCLES_MAX:
+            spin *= 2
+        else:
+            raise RuntimeError(f"gpu_time: the host still dispatched {fn} after a spin of "
+                               f"{spin} cycles")
+    return sum(times) / reps
 
 
 def bound(nbytes: float, flops: float, exps: float, dtype: str) -> tuple:
@@ -877,8 +912,7 @@ def phase_serve(profile: bool) -> dict:
               and abs(float(probs[::16, ::16, ::16].sum(-1).mean()) - 1.0) < 1e-3)
         if not ok:
             raise SystemExit("the main path's labels or probabilities are malformed")
-    launches = {"window_attention": dict(window_mha.launches),
-                "flash_attention": dict(flash_attention.launches)}
+    launches = attention_launches()
     peak = torch.cuda.max_memory_allocated()
     mean = sum(times) / len(times)
     log(f"[serve] volume {VOLUME}x2, {chunks} chunks of {sw_batch} tiles: per-volume ms "
@@ -1000,8 +1034,7 @@ def phase_train(profile: bool) -> dict:
         norms.append(float(metrics["grad_norm"]))
         if float(metrics["skipped"]) != 0.0:
             raise SystemExit("a train step on finite data was skipped")
-    launches = {"window_attention": dict(window_mha.launches),
-                "flash_attention": dict(flash_attention.launches)}
+    launches = attention_launches()
     peak = torch.cuda.max_memory_allocated()
     mean = sum(times) / len(times)
     log(f"[train] micro-batch {micro} x accumulation {accum} of 96^3 patches: per-step ms "
@@ -1241,8 +1274,7 @@ def phase_cli(serve_ms: float, device: str = "cuda") -> dict:
     walls.append(_cli(["--mode", "inference", "--checkpoint", ckpt, "--input",
                        str(work / "input"), "--output", str(work / "pred_unc"),
                        "--set", "inference.save_uncertainty=true", *common], device))
-    launches = {"window_attention": dict(window_mha.launches),
-                "flash_attention": dict(flash_attention.launches)}
+    launches = attention_launches()
     lines = _log_lines(logs / "inference.log", start)
     per_case = [ln.split("| INFO | ")[-1] for ln in lines if re.search(r"\| case \S+ \(", ln)]
     totals = [ln.split("| INFO | ")[-1] for ln in lines if "| Predicted " in ln]
@@ -1266,10 +1298,7 @@ def phase_cli(serve_ms: float, device: str = "cuda") -> dict:
                 for m in config.get("data.modalities")]
         in_affine = mods[0][1]
         vol = torch.from_numpy(np.stack([m[0] for m in mods], axis=-1)).to(device)
-        with torch.no_grad():
-            ref = predict_labels(lambda v: sliding_window_inference(v, model, roi, classes, overlap,
-                                                                    sw, mode), vol)
-        ref = postprocess_from_config(ref.cpu().numpy().astype(np.uint8), config)
+        ref = library_mask(model, vol, config)
         for run in ("pred", "pred_unc"):
             img = nifti.load(str(work / run / f"{case}_pred.nii.gz"))
             mask, kept = img.dataobj, np.array_equal(img.affine, in_affine)
@@ -1339,6 +1368,402 @@ def phase_cli(serve_ms: float, device: str = "cuda") -> dict:
     del model
     shutil.rmtree(work)
     return launches
+
+
+def add_counts(*runs) -> dict:
+    """The sum, route by route, of kernel launch counts
+    ``{wrapper: {route: n}}``."""
+    total: dict = {}
+    for run in runs:
+        for name, counts in run.items():
+            into = total.setdefault(name, {})
+            for route, n in counts.items():
+                into[route] = into.get(route, 0) + n
+    return total
+
+
+def attention_launches() -> dict:
+    from multimodal_organ_segmentation_tpu_torch.ops.flash_attention import flash_attention
+    from multimodal_organ_segmentation_tpu_torch.ops.window_attention import window_mha
+
+    return {"window_attention": dict(window_mha.launches),
+            "flash_attention": dict(flash_attention.launches)}
+
+
+def serving_config(work: Path) -> dict:
+    """The flagship's dict as the service reads it, its outputs under ``work``
+    (``scan_blocks`` off: the same unrolled blocks, and what ``--format
+    torch`` and ``monai_compat`` need)."""
+    cfg = json.loads(json.dumps(FLAGSHIP))
+    cfg["model"]["backbone"]["scan_blocks"] = False
+    cfg["experiment"].update(output_dir=str(work / "out"), log_dir=str(work / "logs"))
+    return cfg
+
+
+def _http(base: str, path: str, body=None):
+    """GET (no body) or POST a JSON body; (status, parsed reply)."""
+    import urllib.error
+    import urllib.request
+
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(base + path, data=data,
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=600) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def library_mask(model, vol, config):
+    """The library path's mask of ``vol`` under ``config`` (a ``ConfigNode``):
+    ``sliding_window_inference`` + ``predict_labels`` + postprocess on
+    ``model``."""
+    import torch
+
+    from multimodal_organ_segmentation_tpu_torch.ops.postprocess import postprocess_from_config
+    from multimodal_organ_segmentation_tpu_torch.ops.sliding_window import (
+        predict_labels,
+        sliding_window_inference,
+    )
+
+    sw = config.get("inference.sliding_window")
+    with torch.no_grad():
+        ref = predict_labels(lambda v: sliding_window_inference(
+            v, model, tuple(sw["roi_size"]), config.get("model.out_channels"), sw["overlap"],
+            config.get("inference.batch_size"), sw["mode"]), vol)
+    return postprocess_from_config(ref.cpu().numpy().astype(np.uint8), config)
+
+
+def serve_subprocess(cfg_path: Path, ckpt: Path, inputs: dict, device: str) -> None:
+    """``python -m multimodal_organ_segmentation_tpu_torch --mode serve`` in a
+    process of its own (on the card unless ``device`` is the CPU): one
+    request, then SIGTERM; it must drain and exit 0."""
+    import signal
+    import threading
+
+    argv = [sys.executable, "-m", "multimodal_organ_segmentation_tpu_torch", "--mode", "serve",
+            "--config", str(cfg_path), "--checkpoint", str(ckpt), "--port", "0"]
+    if device == "cpu":
+        argv += ["--device", "cpu"]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(argv, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    lines, port = [], {}
+
+    def watch():
+        for line in proc.stdout:
+            lines.append(line)
+            m = re.search(r"http://[\d.]+:(\d+)", line)
+            if m and "port" not in port:
+                port["port"] = int(m.group(1))
+
+    watcher = threading.Thread(target=watch, daemon=True)
+    watcher.start()
+    try:
+        while "port" not in port and proc.poll() is None and time.perf_counter() - t0 < 300:
+            time.sleep(0.1)
+        if "port" not in port:
+            raise SystemExit("the serve process did not come up:\n" + "".join(lines)[-3000:])
+        up = time.perf_counter() - t0
+        code, res = _http(f"http://127.0.0.1:{port['port']}", "/v1/segment",
+                          {"inputs": inputs, "case_id": "sub"})
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=120)
+        watcher.join(timeout=30)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+    log_text = "".join(lines)
+    final = [ln for ln in lines if "final stats: " in ln]
+    log(f"[http] --mode serve process: up in {up:.1f} s, one request {code} in "
+        f"{res.get('total_s')} s (device_s {res.get('device_s')}), SIGTERM → exit {rc}; "
+        f"{final[0].split('| INFO | ')[-1].strip() if final else 'no final stats'}")
+    if code != 200 or rc != 0 or "SIGTERM: draining" not in log_text or not final:
+        raise SystemExit("the serve process did not answer, drain and exit 0 on SIGTERM:\n"
+                         + log_text[-3000:])
+
+
+def phase_http(device: str = "cuda", volume=VOLUME) -> tuple:
+    """The HTTP service on the flagship at full width: a port checkpoint of
+    a seeded init, ``make_server`` on an OS-assigned port in a thread,
+    ``/v1/warmup`` at ``volume``, three ``/v1/segment`` requests on one
+    synthetic CT+PET case (two of them concurrent), one with the uncertainty
+    map, ``/v1/stats``; every mask equal to the library path's voxel for
+    voxel and kernel A's and B's launches to the plan. Then ``--mode serve``
+    in a process of its own. Returns (launches, the checkpoint, the case,
+    the config, the served mask, the work directory)."""
+    import threading
+
+    import torch
+
+    from multimodal_organ_segmentation_tpu_torch.models.build import build_model
+    from multimodal_organ_segmentation_tpu_torch.ops.flash_attention import flash_attention
+    from multimodal_organ_segmentation_tpu_torch.ops.sliding_window import SlidingWindowRunner
+    from multimodal_organ_segmentation_tpu_torch.ops.window_attention import window_mha
+    from multimodal_organ_segmentation_tpu_torch.serving.server import InferenceService, make_server
+    from multimodal_organ_segmentation_tpu_torch.train.checkpoint import save_checkpoint
+    from multimodal_organ_segmentation_tpu_torch.utils.config import ConfigNode
+    from multimodal_organ_segmentation_tpu_torch.utils.io import load_nifti, save_nifti
+
+    Path("outputs").mkdir(exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_http_", dir="outputs")).resolve()
+    cfg = serving_config(work)
+    cfg_path = work / "flagship.yaml"
+    cfg_path.write_text(json.dumps(cfg))  # JSON is YAML
+    seed = cfg["experiment"]["seed"]
+    torch.manual_seed(seed)
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=device, train=True)  # f32 weights, as training writes them
+    save_checkpoint({"step": 0, "params": model.state_dict(), "opt_state": None,
+                     "ema_params": None}, work / "ckpt")
+    del model
+    rng = np.random.default_rng(seed)
+    inputs = {}
+    for mod in cfg["data"]["modalities"]:
+        inputs[mod] = str(work / "input" / mod.lower() / "case.nii.gz")
+        save_nifti(rng.standard_normal(volume, np.float32), inputs[mod],
+                   affine=np.diag([0.9, 0.9, 1.5, 1.0]))
+    log(f"[http] checkpoint and one {volume}x2 case written in {time.perf_counter() - t0:.1f} s")
+
+    service = InferenceService(ConfigNode(cfg), work / "ckpt", device=device)
+    httpd = make_server(service, port=0)
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    try:
+        code, info = _http(base, "/v1/warmup", {"shape": list(volume)})
+        log(f"[http] /v1/warmup {list(volume)}: {code} {info}")
+        if code != 200:
+            raise SystemExit("the warm-up request failed")
+        reset_launches(window_mha, flash_attention)
+        replies = {}
+
+        def segment(case_id, **extra):
+            replies[case_id] = _http(base, "/v1/segment", {"inputs": inputs, "case_id": case_id,
+                                                           "output_dir": str(work / "served"),
+                                                           **extra})
+
+        segment("r1")
+        both = [threading.Thread(target=segment, args=(c,)) for c in ("r2", "r3")]
+        for t in both:
+            t.start()
+        for t in both:
+            t.join()
+        segment("r4", uncertainty=True)
+        launches = attention_launches()
+        code, stats = _http(base, "/v1/stats")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=60)
+    for case_id, (code, res) in replies.items():
+        log(f"[http] /v1/segment {case_id}: {code} load_s {res.get('load_s')} device_s "
+            f"{res.get('device_s')} total_s {res.get('total_s')}"
+            + (" (with the uncertainty map)" if case_id == "r4" else "")
+            + (" (concurrent)" if case_id in ("r2", "r3") else ""))
+        if code != 200:
+            raise SystemExit(f"the request {case_id} failed: {res}")
+    log(f"[http] /v1/stats: requests {stats['requests']}, rejected {stats['rejected']}, p50 "
+        f"load_s {stats['load_s']['p50']} device_s {stats['device_s']['p50']} total_s "
+        f"{stats['total_s']['p50']}, p95 total_s {stats['total_s']['p95']}")
+    if stats["requests"] != 4 or stats["server_errors"] or stats["client_errors"]:
+        raise SystemExit(f"the service's counters are wrong: {stats}")
+
+    sw = cfg["inference"]["batch_size"]
+    sw_cfg = cfg["inference"]["sliding_window"]
+    chunks = SlidingWindowRunner(None, tuple(sw_cfg["roi_size"]), cfg["model"]["out_channels"],
+                                 sw_cfg["overlap"], sw).grid(tuple(volume))[0].shape[0]
+    expect = predicted_launches(sw, 4 * chunks, 4 * chunks)
+    log(f"[http] kernels {json.dumps(launches)} expected {json.dumps(expect)} (4 requests of "
+        f"{chunks} chunks of {sw} tiles)")
+    if device == "cuda" and launches != expect:
+        raise SystemExit("the served requests' kernel launches differ from the plan")
+
+    vol = torch.from_numpy(np.stack([load_nifti(inputs[m]) for m in cfg["data"]["modalities"]],
+                                    axis=-1)).to(device)
+    ref = library_mask(service.runner.predict_fn.__self__.model, vol, ConfigNode(cfg))
+    for case_id in replies:
+        mask = load_nifti(work / "served" / f"{case_id}_pred.nii.gz").astype(np.uint8)
+        diff = int((mask != ref).sum()) if mask.shape == ref.shape else -1
+        log(f"[http] served/{case_id}_pred.nii.gz: voxels differing from the library path {diff}")
+        if diff:
+            raise SystemExit(f"the served mask of {case_id} is not the library path's")
+    unc = load_nifti(work / "served" / "r4_unc.nii.gz")
+    if unc.shape != tuple(volume) or unc.min() < 0 or unc.max() > 1 + 1e-6:
+        raise SystemExit("the served uncertainty map is not in [0, 1]")
+    del service, vol
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    serve_subprocess(cfg_path, work / "ckpt", inputs, device)
+    return launches, cfg, cfg_path, inputs, ref, work
+
+
+def phase_tune(cfg_path: Path, work: Path, device: str = "cuda", volume=VOLUME,
+               sw_batches=(8, 15)) -> dict:
+    """``--mode tune`` through ``cli.main`` on the flagship at ``volume``
+    over chunk sizes ``sw_batches`` and overlaps 0.5 and 0.25, one timed run
+    each; every candidate's volumes/min, the written profile, and kernel A's
+    and B's launches to the plan."""
+    from multimodal_organ_segmentation_tpu_torch.ops.flash_attention import flash_attention
+    from multimodal_organ_segmentation_tpu_torch.ops.sliding_window import SlidingWindowRunner
+    from multimodal_organ_segmentation_tpu_torch.ops.window_attention import window_mha
+
+    cfg = json.loads(cfg_path.read_text())
+    overlaps, repeats = (0.5, 0.25), 1
+    sw_cfg = cfg["inference"]["sliding_window"]
+    expect = {}
+    for ov in overlaps:
+        for sw in sw_batches:
+            chunks = SlidingWindowRunner(None, tuple(sw_cfg["roi_size"]),
+                                         cfg["model"]["out_channels"], ov, sw
+                                         ).grid(tuple(volume))[0].shape[0]
+            passes = (1 + repeats) * chunks  # the warm-up run and the timed ones
+            expect = add_counts(expect, predicted_launches(sw, passes, passes))
+    reset_launches(window_mha, flash_attention)
+    profile = work / "tuned_serving.yaml"
+    wall = _cli(["--mode", "tune", "--config", str(cfg_path), "--output", str(profile),
+                 "--set", f"tune.volume_shape={list(volume)}",
+                 "--set", f"tune.sw_batches={list(sw_batches)}",
+                 "--set", f"tune.overlaps={list(overlaps)}", "--set", f"tune.repeats={repeats}"],
+                device)
+    launches = attention_launches()
+    report = json.loads(profile.with_suffix(".yaml.report.json").read_text())
+    for r in report:
+        log(f"[tune] overlap {r['overlap']} sw_batch {r['sw_batch']}: "
+            + (f"{r['vol_per_min']} volumes/min, {r['seconds_per_volume']} s a volume (first run "
+               f"{r['compile_s']} s)" if "vol_per_min" in r else f"FAILED {r['error']}"))
+    log(f"[tune] {len(report)} candidates in {wall:.1f} s of wall time; profile: "
+        + " | ".join(ln for ln in profile.read_text().splitlines()))
+    log(f"[tune] kernels {json.dumps(launches)} expected {json.dumps(expect)}")
+    if len(report) != len(overlaps) * len(sw_batches) or any("error" in r for r in report):
+        raise SystemExit("a tuning candidate failed")
+    if device == "cuda" and launches != expect:
+        raise SystemExit("the tuner's kernel launches differ from the plan")
+    return launches
+
+
+def phase_export(cfg: dict, cfg_path: Path, inputs: dict, served_mask, work: Path,
+                 device: str = "cuda", monai_fs: int = 48) -> dict:
+    """``--mode export --format pt2`` of the [http] checkpoint; the program
+    loaded in this process and served by ``InferenceService``: the mask
+    equal to the checkpoint-served one, kernels A and B launched through
+    the program as planned. Then ``--format torch`` of a ``monai_compat``
+    SwinUNETR (fs ``monai_fs``, depths 2-2-2-2) and ``--pretrained`` of that
+    ``.pth`` into the ``Trainer``: the weights carried exactly, and one 96³
+    tile through kernel A against the plain path, f32 and bf16."""
+    import torch
+
+    from multimodal_organ_segmentation_tpu_torch.models.build import build_model
+    from multimodal_organ_segmentation_tpu_torch.models.program_export import load_program
+    from multimodal_organ_segmentation_tpu_torch.models.swin_unetr import set_use_kernels
+    from multimodal_organ_segmentation_tpu_torch.ops.flash_attention import flash_attention
+    from multimodal_organ_segmentation_tpu_torch.ops.sliding_window import SlidingWindowRunner
+    from multimodal_organ_segmentation_tpu_torch.ops.window_attention import window_mha
+    from multimodal_organ_segmentation_tpu_torch.serving.server import InferenceService
+    from multimodal_organ_segmentation_tpu_torch.train.checkpoint import save_checkpoint
+    from multimodal_organ_segmentation_tpu_torch.train.trainer import Trainer
+    from multimodal_organ_segmentation_tpu_torch.utils.config import ConfigNode
+    from multimodal_organ_segmentation_tpu_torch.utils.io import load_nifti
+
+    program = work / "flagship.pt2"
+    wall = _cli(["--mode", "export", "--format", "pt2", "--config", str(cfg_path),
+                 "--checkpoint", str(work / "ckpt"), "--output", str(program)], device)
+    t0 = time.perf_counter()
+    call, meta = load_program(program)
+    load_s = time.perf_counter() - t0
+    targets = [str(n.target) for n in call.graph.nodes if n.op == "call_function"]
+    nodes = {op: targets.count(f"organseg_torch.{op}.default")
+             for op in ("window_mha", "flash_attention")}
+    log(f"[export] --format pt2: {program.stat().st_size / 2**20:.1f} MiB in {wall:.1f} s, loaded "
+        f"in {load_s:.1f} s; input {meta['input']['shape']}, platforms {meta['platforms']}; "
+        f"custom-op nodes {nodes}")
+    del call
+    sw = cfg["inference"]["batch_size"]
+    sw_cfg = cfg["inference"]["sliding_window"]
+    chunks = SlidingWindowRunner(None, tuple(sw_cfg["roi_size"]), cfg["model"]["out_channels"],
+                                 sw_cfg["overlap"], sw).grid(served_mask.shape)[0].shape[0]
+    expect = predicted_launches(sw, chunks, chunks)
+    service = InferenceService(ConfigNode(cfg), program, device=device)
+    reset_launches(window_mha, flash_attention)
+    res = service.segment(inputs, output_dir=str(work / "artifact"), case_id="a")
+    artifact = attention_launches()
+    mask = load_nifti(work / "artifact" / "a_pred.nii.gz").astype(np.uint8)
+    diff = int((mask != served_mask).sum())
+    log(f"[export] served from the program ({service.model_name}): load_s {res['load_s']} device_s "
+        f"{res['device_s']} total_s {res['total_s']}; voxels differing from the checkpoint-served "
+        f"mask {diff}; kernels {json.dumps(artifact)} expected {json.dumps(expect)}")
+    if diff or nodes != {"window_mha": sum(FLAGSHIP["model"]["backbone"]["depths"]),
+                         "flash_attention": len(FLAGSHIP["model"]["fusion"]["stages"])}:
+        raise SystemExit("the exported program's mask or graph is not the model's")
+    if device == "cuda" and artifact != expect:
+        raise SystemExit("the exported program did not launch kernels A and B as planned")
+    del service
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+    # the reference .pth round trip of a MONAI-compatible SwinUNETR
+    mcfg = json.loads(json.dumps(cfg))
+    mcfg["model"]["backbone"].update(monai_compat=True, feature_size=monai_fs)
+    mcfg["model"]["fusion"] = {"type": "early"}
+    mcfg_path = work / "monai.yaml"
+    mcfg_path.write_text(json.dumps(mcfg))
+    torch.manual_seed(7)
+    model = build_model(mcfg, device=device, train=True)
+    with torch.no_grad():  # tables away from their zero init, so the bias shows
+        for name, p in model.named_parameters():
+            if name.endswith("rel_pos_bias"):
+                p.normal_(0.0, 0.5)
+    save_checkpoint({"step": 0, "params": model.state_dict(), "opt_state": None,
+                     "ema_params": None}, work / "monai_ckpt")
+    pth = work / "monai.pth"
+    wall = _cli(["--mode", "export", "--format", "torch", "--config", str(mcfg_path),
+                 "--checkpoint", str(work / "monai_ckpt"), "--output", str(pth)], device)
+    mcfg["model"]["pretrained"] = str(pth)
+    trainer = Trainer(mcfg, device=device)
+    trainer.init_state()
+    carried = all(torch.equal(trainer.model.state_dict()[k], v)
+                  for k, v in model.state_dict().items())
+    log(f"[export] --format torch of a monai_compat SwinUNETR (fs {monai_fs}): "
+        f"{pth.stat().st_size / 2**20:.1f} MiB in {wall:.1f} s; --pretrained through the Trainer "
+        f"carries every weight exactly: {carried}")
+    if not carried:
+        raise SystemExit("the reference .pth did not carry the weights")
+    del model
+    state = trainer.model.state_dict()
+    del trainer
+    roi = tuple(mcfg["model"]["backbone"]["img_size"])
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal((1, *roi, 2), np.float32)
+                         ).to(device)
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    reset_launches(window_mha, flash_attention)
+    for precision, tol in (("fp32", MODEL_TOL), ("bf16", MODEL_TOL_BF16)):
+        pcfg = json.loads(json.dumps(mcfg))
+        pcfg["hardware"]["mixed_precision"] = precision
+        pcfg["model"]["pretrained"] = None
+        monai = build_model(pcfg, device=device)  # the serving model, in its compute dtype
+        monai.load_state_dict(state)
+        with torch.no_grad():
+            kern = monai(x).float()
+            set_use_kernels(monai, False)
+            plain = monai(x).float()
+        _sync(device)
+        err = (kern - plain).abs().max().item()
+        log(f"[export] monai_compat {precision}, one {'x'.join(map(str, roi))} tile: max |logit "
+            f"kernels - plain| {err:.3e} (tol {tol:.0e}; largest |logit| "
+            f"{plain.abs().max().item():.2f})")
+        if not (torch.isfinite(kern).all() and err <= tol):
+            raise SystemExit(f"the {precision} monai_compat model through the kernels disagrees "
+                             "with the plain versions")
+        del monai, kern, plain
+    monai_launches = attention_launches()
+    log(f"[export] monai_compat kernels {json.dumps(monai_launches)}")
+    if device == "cuda" and not launch_count(monai_launches["window_attention"]):
+        raise SystemExit("the monai_compat model did not launch kernel A")
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    del state, x
+    shutil.rmtree(work)
+    return add_counts(artifact, monai_launches)
 
 
 def planned_flash_launches(cfg: dict, tiles: int, repeat: int) -> dict:
@@ -1521,12 +1946,7 @@ def models_cli(trainer, rng) -> dict:
 
     from multimodal_organ_segmentation_tpu_torch.models.build import build_model
     from multimodal_organ_segmentation_tpu_torch.ops.flash_attention import flash_attention
-    from multimodal_organ_segmentation_tpu_torch.ops.postprocess import postprocess_from_config
-    from multimodal_organ_segmentation_tpu_torch.ops.sliding_window import (
-        predict_labels,
-        sliding_window_inference,
-        tile_count,
-    )
+    from multimodal_organ_segmentation_tpu_torch.ops.sliding_window import tile_count
     from multimodal_organ_segmentation_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
     from multimodal_organ_segmentation_tpu_torch.utils import nifti
     from multimodal_organ_segmentation_tpu_torch.utils.config import load_config
@@ -1556,11 +1976,7 @@ def models_cli(trainer, rng) -> dict:
     model.load_state_dict(load_checkpoint(work / "ckpt", map_location="cuda")["tree"]["params"])
     vol = torch.from_numpy(np.stack([load_nifti(work / "input" / m.lower() / "case.nii.gz")
                                      for m in config.get("data.modalities")], axis=-1)).cuda()
-    with torch.no_grad():
-        ref = predict_labels(lambda v: sliding_window_inference(
-            v, model, roi, config.get("model.out_channels"), overlap, sw,
-            config.get("inference.sliding_window.mode")), vol)
-    ref = postprocess_from_config(ref.cpu().numpy().astype(np.uint8), config)
+    ref = library_mask(model, vol, config)
     mask = nifti.load(str(work / "pred" / "case_pred.nii.gz")).dataobj
     same = mask.dtype == np.uint8 and mask.shape == VOLUME and np.array_equal(mask, ref)
     log(f"[models] {DE128} cli: --mode inference over one {VOLUME} case in {wall * 1e3:.1f} ms of "
@@ -1631,6 +2047,12 @@ def main(argv) -> int:
     by_path["cli"] = phase_cli(serve_ms)
     torch.cuda.empty_cache()
     by_path["models"] = phase_models()
+    torch.cuda.empty_cache()
+    by_path["http"], cfg, cfg_path, inputs, served_mask, work = phase_http()
+    torch.cuda.empty_cache()
+    by_path["tune"] = phase_tune(cfg_path, work)
+    torch.cuda.empty_cache()
+    by_path["export"] = phase_export(cfg, cfg_path, inputs, served_mask, work)
     torch.cuda.empty_cache()
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     kernels = []

@@ -4,14 +4,20 @@
     python -m multimodal_organ_segmentation_tpu_torch --mode eval --checkpoint outputs/x/best
     python -m multimodal_organ_segmentation_tpu_torch --mode inference \
         --checkpoint outputs/x/best --input data/test --output predictions
+    python -m multimodal_organ_segmentation_tpu_torch --mode serve --checkpoint outputs/x/best
+    python -m multimodal_organ_segmentation_tpu_torch --mode tune --output tuned.yaml
+    python -m multimodal_organ_segmentation_tpu_torch --mode export --format pt2 \
+        --checkpoint outputs/x/best --output model.pt2
 
 The same mode vocabulary, flags and config overrides (``--set KEY=VALUE``)
 as the JAX CLI. ``train``, ``eval`` (resized-grid, or native-grid with
-``evaluation.sliding_window: true``) and ``inference`` run here; the other
-modes stay in the parser and raise ``NotImplementedError`` naming the slice
-that brings them. Every mode runs on the CUDA device unless ``--device cpu``
-asks for the CPU; without a card it raises, it never falls back to the CPU.
-Checkpoints are the port's own (``tree.pt`` directories).
+``evaluation.sliding_window: true``), ``inference``, ``serve`` (the HTTP
+service), ``tune`` (the serving tuner) and ``export`` (``--format torch``: a
+reference ``.pth``; ``--format pt2``: an exported program) run here; the
+offline-tail modes stay in the parser and raise ``NotImplementedError``
+naming their slice. Every mode runs on the CUDA device unless ``--device
+cpu`` asks for the CPU; without a card it raises, it never falls back to
+the CPU. Checkpoints are the port's own (``tree.pt`` directories).
 """
 
 from __future__ import annotations
@@ -37,9 +43,6 @@ LATER_MODES = {
     "preprocess": "offline-tail",
     "analysis": "offline-tail",
     "explain": "offline-tail",
-    "export": "serving and CLI",
-    "serve": "serving and CLI",
-    "tune": "serving and CLI",
 }
 
 
@@ -50,7 +53,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     )
     parser.add_argument(
         "--mode", required=True,
-        choices=["train", "eval", "inference", *LATER_MODES],
+        choices=["train", "eval", "inference", "export", "serve", "tune", *LATER_MODES],
     )
     parser.add_argument("--config", default=_DEFAULT_CONFIG)
     parser.add_argument("--exp-name", dest="exp_name", default=None)
@@ -58,8 +61,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser.add_argument("--input", default=None)
     parser.add_argument("--output", default=None)
     parser.add_argument("--checkpoint", default=None)
-    parser.add_argument("--format", default="torch", choices=["torch", "stablehlo"],
-                        help="export mode artifact (export comes with a later slice)")
+    parser.add_argument("--format", default="torch", choices=["torch", "pt2", "stablehlo"],
+                        help="export mode artifact: a reference .pth (torch) or an exported "
+                        "program (pt2); the JAX package's stablehlo is refused")
     parser.add_argument("--resume", default=None)
     parser.add_argument("--pretrained", default=None,
                         help="reference torch .pth to import as initial weights")
@@ -241,6 +245,96 @@ def run_inference(config, logger) -> None:
     logger.info("Inference completed")
 
 
+def run_export(config, logger) -> None:
+    """Export a port checkpoint to a deployment artifact.
+
+    ``--format torch`` (default): reference-loadable ``.pth`` state dict
+    (the inverse of ``--pretrained`` import). ``--format pt2``: an exported
+    program (``torch.export``) with the weights baked in and a symbolic
+    tile-batch dim; it serves with no model code but the port's op library.
+    Both carry the weights eval and inference run on (EMA-selected)."""
+    from multimodal_organ_segmentation_tpu_torch.train.trainer import Trainer, select_infer_params
+    from multimodal_organ_segmentation_tpu_torch.utils.io import load_json
+
+    ckpt = config["_args"].get("checkpoint")
+    out = config["_args"].get("output")
+    if ckpt is None or out is None:
+        raise ValueError("--checkpoint and --output are required for export mode")
+    fmt = config["_args"].get("format", "torch")
+    if fmt == "stablehlo":
+        raise ValueError("--format stablehlo is the JAX package's artifact; the port's "
+                         "portable format is --format pt2")
+    config.set("model.pretrained", None)
+    device = _device(config)
+
+    trainer = Trainer(config, logger=logger, device=device)
+    trainer.init_state()
+    trainer.load_params(ckpt)
+    meta_path = Path(ckpt) / "meta.json"
+    meta = load_json(meta_path) if meta_path.exists() else {}
+    epoch, best = int(meta.get("epoch", 0)), float(meta.get("best_metric", 0.0))
+    if trainer.state.ema_params is not None and bool(config.get("training.ema_eval", True)):
+        logger.info("checkpoint carries EMA params — exporting the EMA weights")
+    Path(out).parent.mkdir(parents=True, exist_ok=True)
+    if fmt == "pt2":
+        from multimodal_organ_segmentation_tpu_torch.models.program_export import export_program
+
+        # the serving model: inference weights in the compute dtype, eval mode
+        model = trainer.freeze_for_inference()
+        export_program(
+            model,
+            out,
+            roi=tuple(config.get("model.backbone.img_size", [96, 96, 96])),
+            in_channels=len(config.get("data.modalities", ["CT", "PET"])),
+            metadata={
+                "model": str(config.get("model.name", "unet3d")),
+                "num_classes": int(config.get("model.out_channels", 0) or 0),
+                "modalities": list(config.get("data.modalities", [])),
+                "epoch": epoch,
+                "best_metric": best,
+            },
+        )
+        logger.info(f"Exported pt2 program: {out}")
+        return
+    from multimodal_organ_segmentation_tpu_torch.models.torch_export import export_torch_checkpoint
+
+    export_torch_checkpoint(select_infer_params(trainer.state, config), config, out, epoch=epoch,
+                            best_metric=best, history=meta.get("history", {}))
+    logger.info(f"Exported torch checkpoint: {out}")
+
+
+def run_serve(config, logger) -> None:
+    """The resident HTTP segmentation service (``serving/server.py``)."""
+    from multimodal_organ_segmentation_tpu_torch.serving import run_serve as _serve
+
+    _serve(config, logger, device=_device(config))
+
+
+def run_tune(config, logger) -> None:
+    """Measure serving candidates (tile chunk size × overlap) on the device
+    and write the winning profile."""
+    from multimodal_organ_segmentation_tpu_torch.serving.tuner import tune_serving, write_profile
+
+    ckpt = config["_args"].get("checkpoint")
+    report = tune_serving(config, logger=logger, checkpoint=ckpt, device=_device(config))
+    out = config["_args"].get("output")
+    profile_path = (
+        Path(out)
+        if out
+        else Path(config.get("experiment.output_dir", "outputs"))
+        / str(config.get("experiment.name", "exp"))
+        / "tuned_serving.yaml"
+    )
+    write_profile(report, profile_path)
+    best = report["best"]
+    logger.info(
+        f"Best: overlap={best['overlap']} sw_batch={best['sw_batch']} → "
+        f"{best['vol_per_min']} vol/min; profile saved: {profile_path} "
+        "(apply with --set inference.batch_size=... --set "
+        "inference.sliding_window.overlap=...)"
+    )
+
+
 def _later_mode(mode: str):
     def run(config, logger) -> None:
         from multimodal_organ_segmentation_tpu_torch.train.trainer import _later
@@ -275,7 +369,8 @@ def main(argv=None) -> None:
     logger.info(f"Mode: {args.mode}")
     logger.info(f"Config: {args.config}")
 
-    runners = {"train": run_train, "eval": run_eval, "inference": run_inference}
+    runners = {"train": run_train, "eval": run_eval, "inference": run_inference,
+               "export": run_export, "serve": run_serve, "tune": run_tune}
     runners.update({mode: _later_mode(mode) for mode in LATER_MODES})
     try:
         runners[args.mode](config, logger)

@@ -118,8 +118,9 @@ class CrossAttentionFusion(nn.Module):
 
     The q/k/v/out projections are the JAX package's 1x1x1 convs, held as
     ``Linear`` over the channel axis. Tokens go through
-    ``multi_head_attention``: kernel B on the card, the blockwise plain
-    version on the CPU or when ``use_kernel`` is False (``set_use_kernels``).
+    ``multi_head_attention``: the custom op of kernel B (the kernel on the
+    card, its plain version on the CPU), or the blockwise plain version for
+    bf16 on the CPU and when ``use_kernel`` is False (``set_use_kernels``).
     """
 
     def __init__(self, channels: int, num_heads: int = 4, dropout: float = 0.0,

@@ -8,9 +8,12 @@ decoder's convolutions take channels-first views of the same memory
 (``permute`` to ``[B, C, H, W, D]``, the ``channels_last_3d`` format), so no
 layout copy is made around a convolution.
 
-Window attention runs kernel A (``ops.window_attention.window_mha``) on a
-CUDA tensor, and the fusion attention kernel B; on a CPU tensor, or with
-``use_kernel`` False on a module (``set_use_kernels``), the plain path runs.
+Window attention goes through the custom op of kernel A
+(``ops.window_attention.window_mha``) and the fusion attention through that of
+kernel B: the kernels on a CUDA tensor, their plain versions on a CPU
+tensor. With ``use_kernel`` False on a module (``set_use_kernels``), and for
+bf16 on the CPU (``ops.attention.takes_custom_op``), the module's own plain
+path runs.
 
 Differences from the flax module, all forced by eager PyTorch:
 
@@ -20,8 +23,16 @@ Differences from the flax module, all forced by eager PyTorch:
 - ``scan_blocks`` (one ``lax.scan`` body per stage) is the same math as
   unrolled blocks, so both build unrolled blocks here; ``convert`` unstacks
   a stacked JAX tree;
-- ``monai_compat``, ``enable_perturb`` and tensor parallelism are not
-  ported yet and raise.
+- ``enable_perturb`` and tensor parallelism are not ported yet and raise.
+
+``monai_compat`` reproduces MONAI's SwinUNETR graph, as the JAX model's flag
+does, for reference-checkpoint interchange (``models/torch_import.py``,
+``models/torch_export.py``): feature taps after each patch merge plus the raw
+patch embedding, a parameter-free layer norm on every tap, no residual block
+on the /16 skip, MONAI's v1 patch-merging order, and relative-position tables
+sized by the constructor window with the index sliced ``[:n, :n]`` where a
+grid clamps the window. Its blocks still run kernel A, which takes the
+gathered ``[H, N, N]`` bias as it is.
 """
 
 from __future__ import annotations
@@ -50,6 +61,7 @@ from multimodal_organ_segmentation_tpu_torch.utils.config import (
     deep_supervision,
     refuse_tensor_parallel,
 )
+from multimodal_organ_segmentation_tpu_torch.ops.attention import takes_custom_op
 from multimodal_organ_segmentation_tpu_torch.ops.window_attention import window_mha
 
 Window = Tuple[int, int, int]
@@ -137,15 +149,16 @@ def _shift_for(window: Window, grid: Sequence[int]) -> Window:
 class WindowAttention(nn.Module):
     """Multi-head self attention within windows + relative position bias.
 
-    On a CUDA tensor with ``attn_drop == 0`` and ``use_kernel`` True,
-    kernel A computes softmax(q·kᵀ + bias + mask)·v, in training as in
-    serving (``window_mha`` is differentiable). Otherwise the dense
-    path runs, with the JAX package's precision rule: f32 inputs stay f32
-    throughout; for bf16, the scores, bias, mask and softmax are bf16 and
-    the matmuls accumulate in f32.
+    With ``attn_drop == 0``, ``use_kernel`` True and a tensor that
+    ``takes_custom_op``, the custom op ``window_mha`` computes
+    softmax(q·kᵀ + bias + mask)·v, in training as in serving (it is
+    differentiable). Otherwise the module's dense path runs, with the JAX
+    package's precision rule: f32 inputs stay f32 throughout; for bf16, the
+    scores, bias, mask and softmax are bf16 and the matmuls accumulate in f32.
     """
 
-    def __init__(self, dim: int, num_heads: int, window: Window, attn_drop: float = 0.0):
+    def __init__(self, dim: int, num_heads: int, window: Window, attn_drop: float = 0.0,
+                 table_window: Optional[Window] = None):
         super().__init__()
         self.dim = dim
         self.num_heads = num_heads
@@ -154,11 +167,14 @@ class WindowAttention(nn.Module):
         self.use_kernel = True
         self.qkv = Linear(dim, 3 * dim)
         self.proj = Linear(dim, dim)
-        wh, ww, wd = self.window
+        # MONAI sizes the table by the constructor window and slices its
+        # index [:n, :n] where the grid clamps the window (``table_window``);
+        # the native model uses the clamped window's own table
+        wh, ww, wd = table_window = tuple(table_window or self.window)
         table = (2 * wh - 1) * (2 * ww - 1) * (2 * wd - 1)
         self.rel_pos_bias = nn.Parameter(torch.zeros(table, num_heads))
         self.register_buffer(
-            "rel_index", torch.from_numpy(_relative_position_index(self.window)), persistent=False
+            "rel_index", torch.from_numpy(_relative_position_index(table_window)), persistent=False
         )
         self.dropout = nn.Dropout(attn_drop)
 
@@ -176,7 +192,7 @@ class WindowAttention(nn.Module):
 
         # attention dropout acts on the probabilities, which the kernel never
         # writes out: a module built with it takes the dense path
-        if self.use_kernel and x.device.type == "cuda" and self.attn_drop == 0.0:
+        if self.use_kernel and self.attn_drop == 0.0 and takes_custom_op(x):
             nw = mask.shape[0] if mask is not None else 1
             out = window_mha(q, k, v, bias, mask, nw)
             return self.proj(out.reshape(b_, n, c).to(x.dtype))
@@ -201,32 +217,33 @@ class SwinBlock(nn.Module):
     """LN → (S)W-MSA → +res → LN → MLP(4×, exact GELU) → +res.
 
     ``window`` is the configured window and ``grid`` the spatial size this
-    block sees: the window clamps to the grid (and the bias table with it),
+    block sees: the window clamps to the grid (and the bias table with it,
+    unless ``monai_table`` keeps MONAI's table of the configured window),
     and a window that covers an axis does not shift along it.
     """
 
     def __init__(self, dim: int, num_heads: int, window: Window, grid: Window,
                  shift: bool = False, mlp_ratio: float = 4.0, drop: float = 0.0,
-                 attn_drop: float = 0.0):
+                 attn_drop: float = 0.0, monai_table: bool = False):
         super().__init__()
         self.window = _clamped_window(window, grid)
         self.grid = tuple(grid)
         self.shift = _shift_for(self.window, grid) if shift else (0, 0, 0)
         self.norm1 = LayerNorm(dim, eps=LN_EPS)
-        self.attn = WindowAttention(dim, num_heads, self.window, attn_drop)
+        self.attn = WindowAttention(dim, num_heads, self.window, attn_drop,
+                                    table_window=tuple(window) if monai_table else None)
         self.norm2 = LayerNorm(dim, eps=LN_EPS)
         self.mlp_fc1 = Linear(dim, int(dim * mlp_ratio))
         self.mlp_fc2 = Linear(int(dim * mlp_ratio), dim)
         self.drop = nn.Dropout(drop)
-        self._mask_key = None
-        self._mask = None
-
-    def _shift_mask(self, dims: Tuple[int, int, int], device) -> torch.Tensor:
-        key = (dims, device)
-        if self._mask_key != key:
-            self._mask = _shift_attention_mask(dims, self.window, self.shift, device)
-            self._mask_key = key
-        return self._mask
+        # the shift mask of the padded grid, fixed at construction: a buffer
+        # that moves with the model and that an exported program holds
+        padded = tuple(g + (-g) % w for g, w in zip(self.grid, self.window))
+        self.register_buffer(
+            "attn_mask",
+            _shift_attention_mask(padded, self.window, self.shift) if any(self.shift) else None,
+            persistent=False,
+        )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, h, w, d, c = x.shape
@@ -244,7 +261,7 @@ class SwinBlock(nn.Module):
         mask = None
         if any(self.shift):
             y = torch.roll(y, tuple(-s for s in self.shift), dims=(1, 2, 3))
-            mask = self._shift_mask((hp, wp, dp), x.device)
+            mask = self.attn_mask
 
         attended = self.attn(window_partition(y, self.window), mask)
         y = window_unpartition(attended, self.window, (b, hp, wp, dp))
@@ -260,11 +277,24 @@ class SwinBlock(nn.Module):
         return x + z
 
 
-class PatchMerging(nn.Module):
-    """Space-to-depth 2³ (product order) → LayerNorm → Linear(8C → 2C)."""
+# MONAI's v1 ``PatchMerging`` ("merging", SwinUNETR's default downsample)
+# samples these 8 (i, j, k) parity triples — (0,1,0) and (0,0,1) twice each,
+# (0,1,1) and (1,1,0) never — as indices into the product-ordered
+# (i·4 + j·2 + k) space-to-depth blocks.
+MONAI_V1_MERGE_ORDER = (0, 4, 2, 1, 5, 2, 1, 7)
 
-    def __init__(self, dim: int):
+
+class PatchMerging(nn.Module):
+    """Space-to-depth 2³ → LayerNorm → Linear(8C → 2C). ``order="product"``
+    concatenates the 8 parities in lexicographic order; ``"monai_v1"`` takes
+    MONAI's v1 slice list (duplicates included: they enter the LayerNorm
+    statistics)."""
+
+    def __init__(self, dim: int, order: str = "product"):
         super().__init__()
+        if order not in ("product", "monai_v1"):
+            raise ValueError(f"unknown patch-merging order {order!r}")
+        self.order = order
         self.norm = LayerNorm(8 * dim, eps=LN_EPS)
         self.reduction = Linear(8 * dim, 2 * dim, bias=False)
 
@@ -275,8 +305,16 @@ class PatchMerging(nn.Module):
             x = F.pad(x, (0, 0, 0, pd, 0, pw, 0, ph))
             h, w, d = h + ph, w + pw, d + pd
         x = x.reshape(b, h // 2, 2, w // 2, 2, d // 2, 2, c)
-        x = x.permute(0, 1, 3, 5, 2, 4, 6, 7).reshape(b, h // 2, w // 2, d // 2, 8 * c)
-        return self.reduction(self.norm(x))
+        x = x.permute(0, 1, 3, 5, 2, 4, 6, 7).reshape(b, h // 2, w // 2, d // 2, 8, c)
+        if self.order == "monai_v1":
+            x = x[..., list(MONAI_V1_MERGE_ORDER), :]
+        return self.reduction(self.norm(x.reshape(b, h // 2, w // 2, d // 2, 8 * c)))
+
+
+def param_free_layer_norm(x: torch.Tensor) -> torch.Tensor:
+    """``F.layer_norm(x, [C])`` in f32 with no scale or bias (MONAI's
+    ``swinViT.proj_out`` with ``normalize=True``), back in x's dtype."""
+    return F.layer_norm(x.float(), (x.shape[-1],), eps=1e-5).to(x.dtype)
 
 
 class UnetrResBlock(nn.Module):
@@ -337,7 +375,9 @@ class SwinUNETR(nn.Module):
     ``fusion_stages``. ``use_remat`` (``parallel.remat``) recomputes each Swin
     block in the backward pass instead of keeping its activations, in
     training mode only. ``dtype`` is the compute dtype: parameters may stay
-    f32 (training) and are cast per op.
+    f32 (training) and are cast per op. ``monai_compat`` builds MONAI's
+    wiring (module docstring): no ``encoder4``, and neither fusion nor deep
+    supervision, which MONAI's graph has no slots for.
     """
 
     def __init__(
@@ -357,10 +397,15 @@ class SwinUNETR(nn.Module):
         fusion_stages: Sequence[int] = (0, 1, 2, 3),
         use_remat: bool = False,
         deep_supervision: bool = False,
+        monai_compat: bool = False,
     ):
         super().__init__()
         if any(s % 32 for s in img_size):
             raise ValueError(f"img_size {tuple(img_size)} must be divisible by 32")
+        if monai_compat and (modality_fusion == "cross_attention" or deep_supervision):
+            raise ValueError("monai_compat reproduces MONAI's graph: no modality fusion and no "
+                             "deep supervision")
+        self.monai_compat = monai_compat
         fs = feature_size
         self.in_channels = in_channels
         self.img_size = tuple(int(s) for s in img_size)
@@ -381,8 +426,10 @@ class SwinUNETR(nn.Module):
                 self.add_module(f"stage{stage}_block{bi}", SwinBlock(
                     dims[stage], num_heads[stage], tuple(window_size), grid,
                     shift=(bi % 2 == 1), drop=drop_rate, attn_drop=attn_drop_rate,
+                    monai_table=monai_compat,
                 ))
-            self.add_module(f"merge{stage}", PatchMerging(dims[stage]))
+            self.add_module(f"merge{stage}", PatchMerging(
+                dims[stage], order="monai_v1" if monai_compat else "product"))
             grid = tuple((g + 1) // 2 for g in grid)
             if self.xfuse:
                 self.add_module(f"aux_down{stage}", Conv3d(aux_ch, 2 * dims[stage], 2, stride=2))
@@ -398,7 +445,8 @@ class SwinUNETR(nn.Module):
         self.encoder1 = UnetrResBlock(fs, fs, norm)
         self.encoder2 = UnetrResBlock(fs * 2, fs * 2, norm)
         self.encoder3 = UnetrResBlock(fs * 4, fs * 4, norm)
-        self.encoder4 = UnetrResBlock(fs * 8, fs * 8, norm)
+        if not monai_compat:  # MONAI feeds the /16 skip to decoder5 as it is
+            self.encoder4 = UnetrResBlock(fs * 8, fs * 8, norm)
         self.encoder10 = UnetrResBlock(fs * 16, fs * 16, norm)
         self.decoder5 = UnetrUpBlock(fs * 16, fs * 8, norm)
         self.decoder4 = UnetrUpBlock(fs * 8, fs * 4, norm)
@@ -420,6 +468,8 @@ class SwinUNETR(nn.Module):
 
         y = conv_cl(self.patch_embed, x)
         hidden: List[torch.Tensor] = []
+        if self.monai_compat:
+            hidden.append(y)  # MONAI's x0: the raw patch embedding at /2
         if self.xfuse:
             aux = F.gelu(conv_cl(self.aux_embed, x[..., 1:]))
         for stage in range(4):
@@ -431,19 +481,25 @@ class SwinUNETR(nn.Module):
                     y = checkpoint(block, y, use_reentrant=False)
                 else:
                     y = block(y)
-            hidden.append(y)  # tap pre-merge (native wiring)
+            if not self.monai_compat:
+                hidden.append(y)  # tap pre-merge (native wiring)
             y = getattr(self, f"merge{stage}")(y)
             if self.xfuse:
                 aux = F.gelu(conv_cl(getattr(self, f"aux_down{stage}"), aux))
                 if stage in self.fusion_stages:
                     y = getattr(self, f"xfuse{stage}")(y, aux)
-        hidden.append(y)  # bottleneck 16fs @ /32
+            if self.monai_compat:
+                hidden.append(y)  # MONAI taps post-merge
+        if not self.monai_compat:
+            hidden.append(y)  # bottleneck 16fs @ /32
+        else:
+            hidden = [param_free_layer_norm(t) for t in hidden]
 
         enc0 = self.encoder0(cf(inp))
         enc1 = self.encoder1(cf(hidden[0]))
         enc2 = self.encoder2(cf(hidden[1]))
         enc3 = self.encoder3(cf(hidden[2]))
-        enc4 = self.encoder4(cf(hidden[3]))
+        enc4 = cf(hidden[3]) if self.monai_compat else self.encoder4(cf(hidden[3]))
         bottleneck = self.encoder10(cf(hidden[4]))
 
         d4 = self.decoder5(bottleneck, enc4)
@@ -474,9 +530,20 @@ def build_swin_unetr(config, dtype: torch.dtype = torch.float32) -> SwinUNETR:
     ftype = str(fusion.get("type", "early")).lower()
     modalities = config.get("data.modalities", ["CT", "PET"])
     modality_fusion = "cross_attention" if (ftype == "cross_attention" and len(modalities) >= 2) else None
-    if backbone.get("monai_compat", False):
-        raise NotImplementedError("model.backbone.monai_compat is not ported to the PyTorch "
-                                  "package yet")
+    monai_compat = bool(backbone.get("monai_compat", False))
+    if modality_fusion and monai_compat:
+        raise ValueError(
+            "model.backbone.monai_compat reproduces the reference graph "
+            "exactly and cannot be combined with model.fusion.type="
+            "cross_attention (this framework's extension) — drop one.")
+    if deep_supervision(config) and monai_compat:
+        raise ValueError(
+            "model.head.type=deep_supervision adds aux-head params that do "
+            "not exist in the MONAI graph — incompatible with "
+            "model.backbone.monai_compat (torch checkpoint interchange).")
+    if monai_compat and bool(backbone.get("scan_blocks", False)):
+        raise ValueError("model.backbone.scan_blocks stacks block params on a depth axis — "
+                         "incompatible with monai_compat checkpoint-parity trees")
     refuse_tensor_parallel(config)
     stages = fusion.get("stages") if hasattr(fusion, "get") else None
     return SwinUNETR(
@@ -495,4 +562,5 @@ def build_swin_unetr(config, dtype: torch.dtype = torch.float32) -> SwinUNETR:
         # an ABSENT key falls back to all stages
         fusion_stages=tuple(stages) if stages is not None else (0, 1, 2, 3),
         deep_supervision=deep_supervision(config),
+        monai_compat=monai_compat,
     )

@@ -7,8 +7,8 @@ Port of the JAX package's ``ops/attention.py``. All functions take
 - ``dense_attention`` — reference softmax attention, f32 math;
 - ``blockwise_attention`` — a loop over KV blocks with the (running max,
   running denominator) flash recurrence; the plain version of kernel B;
-- ``multi_head_attention`` — the dispatch: kernel B (``flash_attention``)
-  on a CUDA tensor, ``blockwise_attention`` on a CPU tensor.
+- ``multi_head_attention`` — the dispatch: the custom op of kernel B
+  (``flash_attention``), whose CPU version is ``blockwise_attention``.
 """
 
 from __future__ import annotations
@@ -80,6 +80,17 @@ def blockwise_attention(
     return out.to(q.dtype)
 
 
+def takes_custom_op(x: torch.Tensor) -> bool:
+    """Whether attention on ``x`` goes through a kernel's custom op
+    (``window_mha``, ``flash_attention``): always on a CUDA tensor, where
+    the op launches the kernel, and for f32 on the CPU, where the op runs
+    its plain version (f32 math, as the kernels). A bf16 tensor on the CPU
+    takes the caller's own plain path instead, which rounds as the JAX
+    package's bf16 path does (scores, bias, mask and softmax in bf16,
+    products accumulated in f32), so that the CPU tests hold bf16 to JAX."""
+    return x.device.type == "cuda" or x.dtype != torch.bfloat16
+
+
 def multi_head_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -87,9 +98,10 @@ def multi_head_attention(
     kv_block: int = 2048,
     use_kernel: bool = True,
 ) -> torch.Tensor:
-    """Dispatch: kernel B on a CUDA tensor, ``blockwise_attention`` on a CPU
-    tensor. ``use_kernel=False`` runs the plain version on any device (the
-    reference the kernel is held against on the card)."""
-    if use_kernel and q.device.type == "cuda":
+    """Dispatch: the custom op of kernel B (``flash_attention``) where
+    :func:`takes_custom_op`; else, and with ``use_kernel=False`` on any
+    device (the reference the kernel is held against on the card),
+    ``blockwise_attention`` with ``kv_block``."""
+    if use_kernel and takes_custom_op(q):
         return flash_attention(q, k, v)
     return blockwise_attention(q, k, v, kv_block=kv_block)

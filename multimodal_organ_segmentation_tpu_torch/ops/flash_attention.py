@@ -5,9 +5,11 @@ attention forward over ``[B, N, H, D]`` query/key/value, no bias, query and
 key lengths may differ. ``flash_attention`` launches the hand-written CUDA
 kernel (``csrc/flash_attention.cu``) on a CUDA tensor; on a CPU tensor it
 runs the kernel's plain version, ``ops.attention.blockwise_attention`` with
-the Pallas kernel's 512-key blocks. It is a ``torch.autograd.Function`` (the
-JAX kernel is a ``custom_vjp``): the backward differentiates the plain
-version on the saved inputs.
+the Pallas kernel's 512-key blocks. It is the ``torch.library`` custom op
+``organseg_torch::flash_attention``, so ``torch.export`` keeps it as one node
+of an exported program; its gradient (the JAX kernel is a ``custom_vjp``),
+registered with ``register_autograd``, differentiates the plain version on
+the saved inputs.
 
 The kernel has two routes, and :func:`plan` picks one by this rule: bf16
 with a head dim that is a multiple of 16 up to 128 and 16-byte aligned
@@ -116,41 +118,51 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return out
 
 
-class _FlashAttention(torch.autograd.Function):
-    """Forward: kernel B on a CUDA tensor, the plain version on a CPU tensor.
-    Backward: the gradient of ``blockwise_attention`` re-run on the saved q,
-    k, v (no probabilities are kept), as the JAX package's ``custom_vjp``."""
+@torch.library.custom_op("organseg_torch::flash_attention", mutates_args=())
+def _flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Kernel B on a CUDA tensor, the plain version on a CPU tensor."""
+    if q.device.type == "cpu":
+        return _plain(q, k, v)
+    return _launch(q, k, v)
 
-    @staticmethod
-    def forward(ctx, q, k, v):
-        ctx.save_for_backward(q, k, v)
-        if q.device.type == "cpu":
-            return _plain(q, k, v)
-        return _launch(q, k, v)
 
-    @staticmethod
-    def backward(ctx, grad_out):
-        inputs = [t.detach().requires_grad_(need)
-                  for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
-        with torch.enable_grad():
-            out = _plain(*inputs)
-        wanted = [t for t in inputs if t.requires_grad]
-        grads = iter(torch.autograd.grad(out, wanted, grad_out))
-        return tuple(next(grads) if t.requires_grad else None for t in inputs)
+@_flash_attention_op.register_fake
+def _(q, k, v):
+    return torch.empty_like(q, memory_format=torch.contiguous_format)
+
+
+def _setup_context(ctx, inputs, output):
+    ctx.save_for_backward(*inputs)
+
+
+def _backward(ctx, grad_out):
+    """The gradient of ``blockwise_attention`` re-run on the saved q, k, v
+    (no probabilities are kept), as the JAX package's ``custom_vjp``."""
+    inputs = [t.detach().requires_grad_(need)
+              for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
+    with torch.enable_grad():
+        out = _plain(*inputs)
+    wanted = [t for t in inputs if t.requires_grad]
+    grads = iter(torch.autograd.grad(out, wanted, grad_out))
+    return tuple(next(grads) if t.requires_grad else None for t in inputs)
+
+
+_flash_attention_op.register_autograd(_backward, setup_context=_setup_context)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Flash multi-head attention over ``[B, N, H, D]`` tokens,
     differentiable in q, k and v.
 
-    A CPU tensor runs the plain version; a CUDA tensor launches the kernel
-    or raises on anything the kernel does not take. Either way the result
-    stays in the autograd graph: the backward is the gradient of the plain
-    version on the saved inputs.
+    The custom op ``torch.ops.organseg_torch.flash_attention``: a CPU tensor
+    runs the plain version; a CUDA tensor launches the kernel or raises on
+    anything the kernel does not take. Either way the result stays in the
+    autograd graph (the backward is the gradient of the plain version on the
+    saved inputs), and ``torch.export`` keeps the op as one node.
     """
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"flash_attention: unsupported device {q.device}")
-    return _FlashAttention.apply(q, k, v)
+    return _flash_attention_op(q, k, v)
 
 
 flash_attention.launches = dict.fromkeys(ROUTES, 0)

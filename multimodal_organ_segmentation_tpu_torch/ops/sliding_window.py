@@ -369,6 +369,23 @@ class SlidingWindowRunner:
         return len(self._keys)
 
 
+def ensemble_run_sw(runner: Callable, members) -> Callable[[torch.Tensor], torch.Tensor]:
+    """Volume → blended logits of ``runner(volume, params)`` with one member,
+    or the mean of the members' softmaxes with several (``inference.ensemble``;
+    ``predict_labels(..., already_probs=True)`` takes the latter)."""
+    if len(members) == 1:
+        return lambda vol: runner(vol, members[0])
+
+    def run_sw(vol):
+        acc = None
+        for v in members:
+            p = torch.softmax(runner(vol, v), dim=-1)
+            acc = p if acc is None else acc + p
+        return acc / len(members)
+
+    return run_sw
+
+
 def predict_labels(
     run_sw: Callable[[torch.Tensor], torch.Tensor],
     image: torch.Tensor,

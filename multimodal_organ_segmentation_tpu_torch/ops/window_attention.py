@@ -8,9 +8,11 @@ Port of the JAX package's ``ops/pallas/window_attention.py``. For windows
 
 with the math in f32 and the output in q's dtype. ``window_mha`` launches the
 hand-written CUDA kernel (``csrc/window_attention.cu``) on a CUDA tensor and
-runs ``dense_window_mha`` on a CPU tensor. It is a ``torch.autograd.Function``
-(the JAX kernel is a ``custom_vjp``): the backward differentiates the plain
-version on the saved inputs.
+runs ``dense_window_mha`` on a CPU tensor. It is the ``torch.library`` custom
+op ``organseg_torch::window_mha``, so ``torch.export`` keeps it as one node of
+an exported program; its gradient (the JAX kernel is a ``custom_vjp``),
+registered with ``register_autograd``, differentiates the plain version on
+the saved inputs.
 
 The kernel has two routes, and :func:`plan` picks one by this rule: bf16
 with a head dim in ``MMA_HEAD_DIMS``, q, k, v starting on 16-byte
@@ -182,30 +184,41 @@ def _launch(q, k, v, bias, mask, num_windows) -> torch.Tensor:
     return out
 
 
-class _WindowMHA(torch.autograd.Function):
-    """Forward: kernel A on a CUDA tensor, the plain version on a CPU tensor.
-    Backward: the gradient of the plain version on the saved inputs (q, k,
-    v, bias, mask; no probabilities are kept), as the JAX package's
-    ``custom_vjp`` takes ``jax.vjp`` of its dense form. ``mask`` gets none."""
+@torch.library.custom_op("organseg_torch::window_mha", mutates_args=())
+def _window_mha_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor,
+                   mask: Optional[torch.Tensor], num_windows: int) -> torch.Tensor:
+    """Kernel A on a CUDA tensor, the plain version on a CPU tensor."""
+    if q.device.type == "cpu":
+        return dense_window_mha(q, k, v, bias, mask, num_windows)
+    return _launch(q, k, v, bias, mask, num_windows)
 
-    @staticmethod
-    def forward(ctx, q, k, v, bias, mask, num_windows):
-        ctx.save_for_backward(q, k, v, bias, mask)
-        ctx.num_windows = num_windows
-        if q.device.type == "cpu":
-            return dense_window_mha(q, k, v, bias, mask, num_windows)
-        return _launch(q, k, v, bias, mask, num_windows)
 
-    @staticmethod
-    def backward(ctx, grad_out):
-        q, k, v, bias, mask = ctx.saved_tensors
-        inputs = [t.detach().requires_grad_(need)
-                  for t, need in zip((q, k, v, bias), ctx.needs_input_grad[:4])]
-        with torch.enable_grad():
-            out = dense_window_mha(*inputs, mask, ctx.num_windows)
-        wanted = [t for t in inputs if t.requires_grad]
-        grads = iter(torch.autograd.grad(out, wanted, grad_out))
-        return (*(next(grads) if t.requires_grad else None for t in inputs), None, None)
+@_window_mha_op.register_fake
+def _(q, k, v, bias, mask, num_windows):
+    return q.new_empty(q.shape)  # contiguous, as the kernel writes it
+
+
+def _setup_context(ctx, inputs, output):
+    q, k, v, bias, mask, num_windows = inputs
+    ctx.save_for_backward(q, k, v, bias, mask)
+    ctx.num_windows = num_windows
+
+
+def _backward(ctx, grad_out):
+    """The gradient of the plain version on the saved inputs (q, k, v, bias,
+    mask; no probabilities are kept), as the JAX package's ``custom_vjp``
+    takes ``jax.vjp`` of its dense form. ``mask`` gets none."""
+    q, k, v, bias, mask = ctx.saved_tensors
+    inputs = [t.detach().requires_grad_(need)
+              for t, need in zip((q, k, v, bias), ctx.needs_input_grad[:4])]
+    with torch.enable_grad():
+        out = dense_window_mha(*inputs, mask, ctx.num_windows)
+    wanted = [t for t in inputs if t.requires_grad]
+    grads = iter(torch.autograd.grad(out, wanted, grad_out))
+    return (*(next(grads) if t.requires_grad else None for t in inputs), None, None)
+
+
+_window_mha_op.register_autograd(_backward, setup_context=_setup_context)
 
 
 def window_mha(
@@ -229,14 +242,16 @@ def window_mha(
     Returns:
         ``[BW, N, H, D]`` in q's dtype.
 
-    A CPU tensor runs :func:`dense_window_mha`; a CUDA tensor launches the
-    kernel or raises on anything the kernel does not take. Either way the
-    result stays in the autograd graph: the backward is the gradient of
-    :func:`dense_window_mha` on the saved inputs.
+    The custom op ``torch.ops.organseg_torch.window_mha``: a CPU tensor runs
+    :func:`dense_window_mha`; a CUDA tensor launches the kernel or raises on
+    anything the kernel does not take. Either way the result stays in the
+    autograd graph (the backward is the gradient of :func:`dense_window_mha`
+    on the saved inputs), and ``torch.export`` keeps the op as one node
+    whose fake version gives the shape for any tile batch.
     """
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"window_mha: unsupported device {q.device}")
-    return _WindowMHA.apply(q, k, v, bias, mask, num_windows)
+    return _window_mha_op(q, k, v, bias, mask, num_windows)
 
 
 window_mha.launches = dict.fromkeys(ROUTES, 0)

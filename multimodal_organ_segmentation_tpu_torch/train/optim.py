@@ -9,8 +9,8 @@ with optax's update rules:
   differ by ``lr²·wd`` times the Adam direction, far below f32 resolution at
   the configured rates;
 - ``sgd``   — momentum ``t ← g + μ·t``, L2 decay added to the gradient;
-- ``adafactor`` — not ported yet (torch's ``Adafactor`` follows another
-  update rule than optax's): raises ``NotImplementedError``;
+- ``adafactor`` — optax's ``adafactor`` with its defaults (:class:`Adafactor`;
+  torch's own ``Adafactor`` follows another update rule);
 - ``training.grad_clip_norm`` > 0 clips the global gradient norm first, by
   optax's rule ``g · min(1, c/‖g‖)`` (no epsilon).
 
@@ -32,6 +32,7 @@ from __future__ import annotations
 import math
 from typing import Iterable, List, Optional
 
+import numpy as np
 import torch
 
 
@@ -80,6 +81,93 @@ class ChainedOptimizer:
         self.inner.load_state_dict(state)
 
 
+def _factored_dims(shape, min_dim_size_to_factor: int):
+    """optax's rule: the two largest axes (second largest, largest), or None
+    when fewer than two axes or the second largest is under the minimum."""
+    if len(shape) < 2:
+        return None
+    order = np.argsort(shape)
+    if shape[order[-2]] < min_dim_size_to_factor:
+        return None
+    return int(order[-2]), int(order[-1])
+
+
+def _rms(x: torch.Tensor) -> torch.Tensor:
+    return torch.sqrt(torch.mean(x * x))
+
+
+class Adafactor(torch.optim.Optimizer):
+    """optax's ``adafactor`` (``train/optim.py:55-64`` of the JAX package: its
+    defaults, ``weight_decay_rate`` = the configured decay or none), as the
+    chain optax builds:
+
+    1. ``scale_by_factored_rms`` (decay ``1 - (t+1)^-0.8``, eps 1e-30): a
+       tensor whose second-largest axis has at least 128 entries keeps row
+       and column means of ``g² + eps`` over its two largest axes; any other
+       keeps the full ``v``; the update is ``g / sqrt(v̂)``;
+    2. ``clip_by_block_rms(1.0)``: ``u / max(1, rms(u))`` per tensor;
+    3. times the learning rate;
+    4. ``scale_by_param_block_rms``: times ``max(rms(p), 1e-3)``;
+    5. ``add_decayed_weights``: ``+ weight_decay · p`` (not scaled by the
+       learning rate);
+    6. the parameter moves by minus the update.
+
+    The factored axes are chosen by size, so the port's layouts (torch's
+    ``[out, in, ...]`` where flax has ``[..., in, out]``) factor the same
+    axes; between two axes of equal size the choice swaps row and column,
+    which the rule is symmetric in (up to the order of one mean)."""
+
+    def __init__(self, params, lr: float = 1e-3, weight_decay: float = 0.0,
+                 decay_rate: float = 0.8, min_dim_size_to_factor: int = 128,
+                 clipping_threshold: float = 1.0, eps: float = 1e-30, min_scale: float = 1e-3):
+        defaults = dict(lr=lr, weight_decay=weight_decay, decay_rate=decay_rate,
+                        min_dim_size_to_factor=min_dim_size_to_factor,
+                        clipping_threshold=clipping_threshold, eps=eps, min_scale=min_scale)
+        super().__init__(params, defaults)
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                g = p.grad
+                state = self.state[p]
+                dims = _factored_dims(tuple(p.shape), group["min_dim_size_to_factor"])
+                if not state:
+                    state["step"] = 0
+                    if dims is not None:
+                        d1, d0 = dims
+                        state["v_row"] = p.new_zeros(tuple(np.delete(p.shape, d0)))
+                        state["v_col"] = p.new_zeros(tuple(np.delete(p.shape, d1)))
+                    else:
+                        state["v"] = torch.zeros_like(p)
+                t = torch.tensor(float(state["step"] + 1), dtype=torch.float32)
+                decay = (1.0 - t ** (-group["decay_rate"])).to(p.device)
+                grad_sqr = g * g + group["eps"]
+                if dims is not None:
+                    d1, d0 = dims
+                    v_row = decay * state["v_row"] + (1.0 - decay) * grad_sqr.mean(dim=d0)
+                    v_col = decay * state["v_col"] + (1.0 - decay) * grad_sqr.mean(dim=d1)
+                    state["v_row"], state["v_col"] = v_row, v_col
+                    reduced_d1 = d1 - 1 if d1 > d0 else d1
+                    row_factor = (v_row / v_row.mean(dim=reduced_d1, keepdim=True)) ** -0.5
+                    u = g * row_factor.unsqueeze(d0) * (v_col ** -0.5).unsqueeze(d1)
+                else:
+                    v = decay * state["v"] + (1.0 - decay) * grad_sqr
+                    state["v"] = v
+                    u = g * v ** -0.5
+                u = u / torch.clamp(_rms(u) / group["clipping_threshold"], min=1.0)
+                u = u * group["lr"]
+                p_rms = _rms(p)
+                u = u * torch.where(p_rms <= group["min_scale"],
+                                    torch.full_like(p_rms, group["min_scale"]), p_rms)
+                if group["weight_decay"]:
+                    u = u + group["weight_decay"] * p
+                p.add_(-u)
+                state["step"] += 1
+
+
 def make_optimizer(config, params: Iterable[torch.nn.Parameter]) -> ChainedOptimizer:
     """Build the configured optimiser over ``params`` with a learning rate
     that ``set_learning_rate`` rewrites."""
@@ -96,10 +184,7 @@ def make_optimizer(config, params: Iterable[torch.nn.Parameter]) -> ChainedOptim
         momentum = float(opt_cfg.get("momentum", 0.9))
         inner = torch.optim.SGD(params, lr=lr, momentum=momentum, weight_decay=wd)
     elif name == "adafactor":
-        raise NotImplementedError(
-            "training.optimizer.name=adafactor is not ported to the PyTorch package yet "
-            "(optax's factored update rule; queued with the optimiser follow-ups)"
-        )
+        inner = Adafactor(params, lr=lr, weight_decay=wd)
     else:  # adamw (and fallback)
         b1, b2 = tuple(opt_cfg.get("betas", [0.9, 0.999]))
         inner = torch.optim.AdamW(params, lr=lr, betas=(float(b1), float(b2)), eps=1e-8,

@@ -20,9 +20,14 @@
   Like the JAX package, predict normalises only with ``inference.normalize:
   true``.
 
+- ``model.pretrained``: a reference ``.pth`` (``models/torch_import.py``)
+  as the initial weights, validated against the model's parameter shapes;
+- ``experiment.tensorboard``: per-epoch scalars in ``<output>/tb``
+  (``utils/tensorboard.py``); ``hardware.profile_dir``: a ``torch.profiler``
+  trace of epoch ``hardware.profile_epoch``.
+
 Not ported yet, each raising ``NotImplementedError`` that names its slice:
-meshes, ZeRO-1 and multi-process case shards (multi-device slice),
-``model.pretrained`` import, TensorBoard and profiler traces.
+meshes, ZeRO-1 and multi-process case shards (multi-device slice).
 """
 
 from __future__ import annotations
@@ -342,8 +347,9 @@ class Trainer:
         ``sample_image`` is accepted for the JAX signature and unused: the
         port's parameter shapes are fixed at construction."""
         self.keys.next()  # the JAX trainer spends one key on the init: same stream position
-        if self.config.get("model.pretrained", None) and not self._resume_from:
-            raise _later("model.pretrained (reference .pth import)", "checkpoint-import")
+        pretrained = self.config.get("model.pretrained", None)
+        if pretrained and not self._resume_from:
+            self._import_pretrained(pretrained)
         optimizer = make_optimizer(self.config, self.model.parameters())
         ema = self._fresh_ema() if self._ema_decay() is not None else None
         self.state = TrainState(step=0, model=self.model, optimizer=optimizer, ema_params=ema)
@@ -352,6 +358,27 @@ class Trainer:
             self.resume(self._resume_from)
             self._resume_from = None
         return self.state
+
+    def _import_pretrained(self, path) -> None:
+        """``model.pretrained``: a reference torch ``.pth`` mapped onto the
+        model's parameters (``models/torch_import.py``), validated name by
+        name and shape by shape against the model before any is loaded."""
+        from multimodal_organ_segmentation_tpu_torch.models.torch_import import (
+            import_torch_checkpoint,
+        )
+
+        imported = import_torch_checkpoint(path, self.config)
+        ref = {n: tuple(p.shape) for n, p in self.model.named_parameters()}
+        got = {n: tuple(t.shape) for n, t in imported.items()}
+        if ref != got:
+            raise ValueError(
+                f"pretrained checkpoint {path} does not match the configured model: "
+                f"expected shapes {ref}, imported {got}")
+        with torch.no_grad():
+            for n, p in self.model.named_parameters():
+                p.copy_(imported[n])
+        if self.logger:
+            self.logger.info(f"Imported reference torch weights: {path}")
 
     def freeze_for_inference(self) -> nn.Module:
         """Turn the training state into the serving model and return it.
@@ -493,17 +520,15 @@ class Trainer:
             raise ValueError(
                 "training.checkpoint.monitor=dice_native requires training.native_val_every > 0"
             )
-        if bool(self.config.get("experiment.tensorboard", False)):
-            raise _later("experiment.tensorboard", "logging")
-        if self.config.get("hardware.profile_dir"):
-            raise _later("hardware.profile_dir (profiler trace of an epoch)", "tracing")
-
         if self.state is None:
             self.init_state()
         if self._ckpt_async and self._ckpt_writer is None:
             self._ckpt_writer = AsyncCheckpointWriter()
             self.ckpt.writer = self._ckpt_writer
         self._prune_metrics_stream()
+        tb_writer = self._open_tensorboard()
+        profile_dir = self.config.get("hardware.profile_dir")
+        profile_epoch = int(self.config.get("hardware.profile_epoch", 1))
 
         try:
             for epoch in range(self.current_epoch, self.epochs):
@@ -511,7 +536,9 @@ class Trainer:
                 lr = self.scheduler.lr_for_epoch(epoch, metric=prev_metric)
 
                 t0 = time.perf_counter()
-                train_loss = self._train_epoch(lr)
+                # a torch.profiler trace of one epoch when asked for
+                with self._profile(profile_dir if epoch == profile_epoch else None, epoch):
+                    train_loss = self._train_epoch(lr)
                 self.history["train_loss"].append(train_loss)
 
                 val_loss, val_metrics = self._validate()
@@ -561,6 +588,18 @@ class Trainer:
                     rec["val_dice_native"] = _num(dice_native)
                 with open(self.output_dir / "metrics.jsonl", "a") as f:
                     f.write(json.dumps(rec) + "\n")
+                if tb_writer is not None:
+                    scalars = {
+                        "loss/train": train_loss,
+                        "loss/val": val_loss,
+                        "metrics/val_dice": val_dice,
+                        "lr": lr,
+                        "time/epoch_seconds": dt,
+                    }
+                    if dice_native is not None:
+                        scalars["metrics/val_dice_native"] = dice_native
+                    tb_writer.add_scalars(scalars, step=epoch + 1)
+                    tb_writer.flush()
 
                 # best-metric tracking is independent of checkpoint policy
                 # (with save_best off, early stopping must still see the best).
@@ -583,13 +622,68 @@ class Trainer:
                         self.logger.info(f"Early stopping at epoch {epoch + 1}")
                     break
         finally:
-            # close the writer on every exit path; don't return before every
+            # close the writers on every exit path; don't return before every
             # queued write is on disk (writer errors surface here)
+            if tb_writer is not None:
+                tb_writer.close()
             if self._ckpt_writer is not None:
                 self._ckpt_writer.close()
                 self._ckpt_writer = None
                 self.ckpt.writer = None
         return self.history
+
+    def _open_tensorboard(self):
+        """``experiment.tensorboard``: a scalar event writer in ``<output>/tb``
+        that first carries over the completed epochs (step <= current epoch)
+        of earlier event files and deletes them, as ``_prune_metrics_stream``
+        does for the JSON stream; None when off."""
+        if not bool(self.config.get("experiment.tensorboard", False)):
+            return None
+        from multimodal_organ_segmentation_tpu_torch.utils.tensorboard import (
+            SummaryWriter,
+            read_scalar_events,
+        )
+
+        tb_dir = self.output_dir / "tb"
+        old_events = sorted(tb_dir.glob("events.out.tfevents.*")) if tb_dir.exists() else []
+        writer = SummaryWriter(tb_dir)
+        kept: Dict = {}
+        for old in old_events:
+            try:
+                for tag, pts in read_scalar_events(old).items():
+                    for step, v in pts:
+                        if step <= self.current_epoch:
+                            kept[(tag, step)] = v
+            except ValueError:
+                pass  # corrupt/truncated prior file: drop it
+            old.unlink()
+        for (tag, step), v in sorted(kept.items(), key=lambda kv: kv[0][1]):
+            writer.add_scalar(tag, v, step)
+        return writer
+
+    @contextlib.contextmanager
+    def _profile(self, profile_dir, epoch: int):
+        """A ``torch.profiler`` trace (host ops, and the card's kernels on a
+        CUDA device) of the enclosed epoch, written as a Chrome trace
+        ``<profile_dir>/epoch<epoch>.pt.trace.json``; a no-op without a
+        directory."""
+        if not profile_dir:
+            yield
+            return
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        out = Path(profile_dir)
+        out.mkdir(parents=True, exist_ok=True)
+        with profile(activities=activities) as prof:
+            yield
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)  # the epoch's kernels inside the trace
+        prof.export_chrome_trace(str(out / f"epoch{epoch}.pt.trace.json"))
+        if self.logger:
+            self.logger.info(f"profiler trace of epoch {epoch}: {out}")
 
     def train_step_fn(self) -> Callable:
         """The train step over this trainer's model, optimiser and loss,
@@ -1040,6 +1134,7 @@ class Trainer:
         from multimodal_organ_segmentation_tpu_torch.data.transforms import normalize_from_config
         from multimodal_organ_segmentation_tpu_torch.ops.postprocess import postprocess_from_config
         from multimodal_organ_segmentation_tpu_torch.ops.sliding_window import (
+            ensemble_run_sw,
             predict_labels,
             predictive_entropy,
         )
@@ -1073,16 +1168,7 @@ class Trainer:
         runner = self._runner()
 
         is_ensemble = len(members) > 1
-        if is_ensemble:
-            def run_sw(vol):
-                acc = None
-                for v in members:
-                    p = torch.softmax(runner(vol, v), dim=-1)
-                    acc = p if acc is None else acc + p
-                return acc / len(members)
-        else:
-            def run_sw(vol):
-                return runner(vol, members[0])
+        run_sw = ensemble_run_sw(runner, members)
 
         modalities = list(self.config.get("data.modalities", ["CT", "PET"]))
         normalize = bool(self.config.get("inference.normalize", False))

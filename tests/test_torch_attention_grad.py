@@ -1,13 +1,13 @@
 """Gradients through the port's ``window_mha`` and ``flash_attention``
-(``torch.autograd.Function``s) against ``jax.grad`` of the JAX package's
+(custom ops with ``register_autograd``) against ``jax.grad`` of the JAX package's
 ``custom_vjp`` kernels, which run on the CPU as the JAX package's own tests
-run them. On the CPU the port's Functions take the plain forward; the
+run them. On the CPU the port's ops take the plain forward; the
 backward, the gradient of the plain version on the saved inputs, is the one
 the card uses.
 
 Tolerances are those of ``tests/test_window_mha.py`` (rtol 1e-4, atol 1e-5)
 and ``tests/test_flash_attention.py`` (atol 3e-5): f32 sums in another order.
-``gradcheck`` in f64 holds the Functions' backward to finite differences.
+``gradcheck`` in f64 holds the ops' backward to finite differences.
 """
 
 import numpy as np
@@ -53,7 +53,7 @@ def test_window_mha_gradients_match_jax(bw, n, h, d, nw, with_mask):
     tq, tk, tv, tb = (torch.from_numpy(a).requires_grad_() for a in (q, k, v, bias))
     tmask = None if mask is None else torch.from_numpy(mask)
     out = window_mha(tq, tk, tv, tb, tmask, nw_arg)
-    assert out.grad_fn is not None and "WindowMHA" in type(out.grad_fn).__name__
+    assert out.grad_fn is not None and "organseg_torch_window_mha" in type(out.grad_fn).__name__
     (out**2).sum().backward()
     for t, r in zip((tq, tk, tv, tb), ref):
         np.testing.assert_allclose(t.grad.numpy(), np.asarray(r), rtol=1e-4, atol=1e-5)
@@ -87,7 +87,7 @@ def test_flash_attention_gradients_match_jax(nq, nk, h, d):
     ref = jax.grad(loss, argnums=(0, 1, 2))(*(jnp.asarray(a) for a in (q, k, v)))
     tq, tk, tv = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
     out = flash_attention(tq, tk, tv)
-    assert out.grad_fn is not None and "FlashAttention" in type(out.grad_fn).__name__
+    assert out.grad_fn is not None and "organseg_torch_flash_attention" in type(out.grad_fn).__name__
     (out**2).sum().backward()
     for t, r in zip((tq, tk, tv), ref):
         np.testing.assert_allclose(t.grad.numpy(), np.asarray(r), atol=3e-5)

@@ -1,5 +1,6 @@
 """The slice as a whole on the CPU: the port's CLI (``--mode inference``,
-``--mode eval`` on native grids, ``--mode train``) against the JAX package.
+``--mode eval`` on native grids, ``--mode train``) and its HTTP service
+(``serving/server.py``, ``--mode serve``) against the JAX package.
 
 A tiny SwinUNETR (the flagship's structure at fs=12, 32³ ROI, 8 classes,
 f32) gets seeded JAX parameters; the port's checkpoint (``tree.pt``) is
@@ -17,8 +18,17 @@ HD95, NSD and ASSD exactly wherever the masks agree (the same host numpy
 on the same masks).
 """
 
+import collections
 import csv
 import json
+import os
+import re
+import signal
+import subprocess
+import sys
+import threading
+import urllib.error
+import urllib.request
 from pathlib import Path
 
 import numpy as np
@@ -32,6 +42,7 @@ from multimodal_organ_segmentation_tpu.data import transforms as jtr
 from multimodal_organ_segmentation_tpu.models import swin_unetr as jswin
 from multimodal_organ_segmentation_tpu.ops import postprocess as jpp
 from multimodal_organ_segmentation_tpu.ops import sliding_window as jsw
+from multimodal_organ_segmentation_tpu.serving import server as jserver
 from multimodal_organ_segmentation_tpu.train import metrics as jm
 from multimodal_organ_segmentation_tpu.utils.config import ConfigNode as JConfig
 from multimodal_organ_segmentation_tpu_torch import cli
@@ -40,9 +51,11 @@ from multimodal_organ_segmentation_tpu_torch.data.synthetic import (
     synthetic_volume,
 )
 from multimodal_organ_segmentation_tpu_torch.models import convert
+from multimodal_organ_segmentation_tpu_torch.serving import server
 from multimodal_organ_segmentation_tpu_torch.train.checkpoint import save_checkpoint
 from multimodal_organ_segmentation_tpu_torch.utils import nifti
 from multimodal_organ_segmentation_tpu_torch.utils.config import (
+    ConfigNode,
     load_config,
     merge_config_with_args,
     save_config,
@@ -151,7 +164,8 @@ def world(tmp_path_factory):
         hd.update(mask[None], labels[case][None], spacing=spacing)
         nsd.update(mask[None], labels[case][None], spacing=spacing)
         assd.update(mask[None], labels[case][None], spacing=spacing)
-        ref[case] = {"mask": mask, "clear": (top2[..., 1] - top2[..., 0]) > 2 * SLICE_TOL}
+        ref[case] = {"mask": mask, "clear": (top2[..., 1] - top2[..., 0]) > 2 * SLICE_TOL,
+                     "logits": logits}
     metrics = {**dice.compute(), "hd95": hd.compute()["hausdorff_distance"], **nsd.compute(),
                **assd.compute()}
     assert runner.num_compiled == 1
@@ -362,3 +376,230 @@ def test_save_config_and_logger_match_jax(tmp_path):
     tlogger.LoggerAdapter(log).log_metrics({"dice": 0.5, "n": 3, "skip": [1]}, prefix="val ")
     assert tlogger.get_logger("port_test") is log
     assert (tmp_path / "l.log").read_text().strip().endswith("val dice=0.500000 n=3")
+
+
+# -- the HTTP service (serving/server.py) on the same weights and cases ------
+#
+# Masks against the JAX reference under the rule above, and bit for bit
+# against the port's own ``Trainer.predict``. The probability and entropy
+# maps: within 1e-5 of the JAX package's ``predict_labels`` softmax and
+# ``predictive_entropy`` applied to the port's blended logits (the maps' own
+# arithmetic), and within 1e-4 of the whole JAX reference: with these seeded
+# weights the logits reach |10.5| and the two packages' logits differ by up
+# to 1.9e-4 at one tile, which moves a probability by up to 4e-5, so 1e-5
+# cannot hold end to end.
+
+PROB_TOL = 1e-5  # the maps' arithmetic on the same logits
+MODEL_PROB_TOL = 1e-4  # the maps against the whole JAX reference
+SHAPE = CASES["case_a"]
+SMALL = (36, 32, 32)  # 2 tiles: the case of the service's other tests
+
+
+@pytest.fixture(scope="module")
+def serving(world):
+    """The config as a dict, the inputs of case_a and of a small case, the
+    JAX reference's probabilities and entropy of case_a, and the service."""
+    cfg = yaml.safe_load(world["config"].read_text())
+    inputs = {m: str(world["root"] / "input" / m.lower() / "case_a.nii.gz") for m in ("CT", "PET")}
+    small, _ = synthetic_volume(SMALL, CLASSES, np.random.default_rng(12))
+    inputs_small = {}
+    for c, mod in enumerate(("CT", "PET")):
+        inputs_small[mod] = str(world["root"] / "small" / f"{mod}.nii.gz")
+        save_nifti(small[..., c], inputs_small[mod], affine=AFFINE)
+    _, probs = jsw.predict_labels(lambda v: jnp.asarray(world["ref"]["case_a"]["logits"]),
+                                  jnp.zeros((*SHAPE, 2)), return_probs=True)
+    return {"cfg": cfg, "inputs": inputs, "small": inputs_small, "probs": np.asarray(probs),
+            "unc": np.asarray(jsw.predictive_entropy(probs)),
+            "service": server.InferenceService(ConfigNode(cfg), world["ckpt"], device="cpu")}
+
+
+@pytest.fixture(scope="module")
+def served(world, serving):
+    out = world["root"] / "served"
+    result = serving["service"].segment(serving["inputs"], output_dir=str(out),
+                                        case_id="case_a", probabilities=True, uncertainty=True)
+    return result, out
+
+
+@pytest.fixture(scope="module")
+def served_small(world, serving):
+    out = world["root"] / "served_small"
+    serving["service"].segment(serving["small"], output_dir=str(out), case_id="s",
+                               probabilities=True, uncertainty=True)
+    return out
+
+
+def test_served_mask_matches_jax_and_trainer_predict(world, served, predicted):
+    result, out = served
+    assert result["shape"] == list(SHAPE) and result["bucket"] == [48, 48, 48]
+    mask = load_nifti(out / "case_a_pred.nii.gz").astype(np.uint8)
+    ref = world["ref"]["case_a"]
+    np.testing.assert_array_equal(mask[ref["clear"]], ref["mask"][ref["clear"]])
+    assert result["class_voxels"] == {int(c): int(n) for c, n in
+                                      zip(*np.unique(mask, return_counts=True))}
+    # --mode inference (Trainer.predict) on the same checkpoint and case
+    np.testing.assert_array_equal(mask, load_nifti(predicted / "case_a_pred.nii.gz"))
+
+
+def test_probability_and_uncertainty_maps_match_jax(world, serving, served, served_small):
+    result, out = served
+    probs = load_nifti(out / "case_a_prob.nii.gz")
+    unc = load_nifti(out / "case_a_unc.nii.gz")
+    assert result["probabilities"].endswith("case_a_prob.nii.gz")
+    assert probs.shape == (*SHAPE, CLASSES) and unc.shape == SHAPE
+    np.testing.assert_allclose(probs, serving["probs"], atol=MODEL_PROB_TOL)
+    np.testing.assert_allclose(unc, serving["unc"], atol=MODEL_PROB_TOL)
+    # the maps' arithmetic: JAX's softmax and entropy of the service's own logits
+    from multimodal_organ_segmentation_tpu_torch.data.transforms import normalize_from_config
+
+    service = serving["service"]
+    probs = load_nifti(served_small / "s_prob.nii.gz")
+    unc = load_nifti(served_small / "s_unc.nii.gz")
+    image = np.stack([load_nifti(serving["small"][m]) for m in ("CT", "PET")], axis=-1)
+    norm = normalize_from_config(torch.from_numpy(image), ConfigNode(serving["cfg"]))
+    with torch.no_grad():
+        logits = jnp.asarray(service.runner(norm, service._variables).numpy())
+    _, jprobs = jsw.predict_labels(lambda v: logits, jnp.asarray(norm.numpy()),
+                                   return_probs=True)
+    np.testing.assert_allclose(probs, np.asarray(jprobs), atol=PROB_TOL)
+    np.testing.assert_allclose(unc, np.asarray(jsw.predictive_entropy(jprobs)), atol=PROB_TOL)
+
+
+def test_duplicate_ensemble_member_equals_the_single_model(world, serving, served_small):
+    cfg = ConfigNode(serving["cfg"])
+    cfg.set("inference.ensemble", [str(world["ckpt"])])
+    ens = server.InferenceService(cfg, world["ckpt"], device="cpu")
+    assert len(ens._members) == 2
+    out = world["root"] / "ensemble"
+    ens.segment(serving["small"], output_dir=str(out), case_id="s")
+    np.testing.assert_array_equal(load_nifti(out / "s_pred.nii.gz"),
+                                  load_nifti(served_small / "s_pred.nii.gz"))
+
+
+class _Runner:
+    num_compiled = 3
+
+
+@pytest.mark.parametrize("n", [1, 2, 7, 600])
+def test_stats_percentiles_equal_jax_stats(n):
+    """The counters and the percentile rule of JAX's ``stats()`` (run on a
+    stub instance: no model) over the same latency list, which for 600
+    requests also exercises the 512-request window."""
+    rng = np.random.default_rng(n)
+    lats = {k: rng.random(n).round(4).tolist() for k in ("total_s", "device_s", "load_s")}
+
+    def stub(cls):
+        svc = object.__new__(cls)
+        svc._stats_lock = threading.Lock()
+        svc._counters = collections.Counter(rejected=2, client_errors=1,
+                                                          warmups=1)
+        svc._latencies = {k: collections.deque(v, maxlen=512)
+                          for k, v in lats.items()}
+        svc.requests_served = n
+        svc.runner = _Runner()
+        svc.max_in_flight = 4
+        return svc
+
+    assert stub(server.InferenceService).stats() == stub(jserver.InferenceService).stats()
+
+
+def _post(url, body, raw=False):
+    data = body if raw else json.dumps(body).encode()
+    req = urllib.request.Request(url, data=data, headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=120) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def test_http_endpoints_status_codes(serving, tmp_path):
+    service = serving["service"]
+    httpd = server.make_server(service, port=0)
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    try:
+        with urllib.request.urlopen(base + "/healthz", timeout=30) as r:
+            health = json.loads(r.read())
+        assert health["status"] == "ok" and health["modalities"] == ["CT", "PET"]
+        code, info = _post(base + "/v1/warmup", {"shape": [32, 32, 32]})
+        assert code == 200 and info["bucket"] == [32, 32, 32]
+        code, res = _post(base + "/v1/segment", {"inputs": serving["small"], "case_id": "h"})
+        assert code == 200 and res["shape"] == list(SMALL) and "output" not in res
+        # 503: every admission slot taken
+        held = [service._admission.acquire(blocking=False) for _ in range(service.max_in_flight)]
+        try:
+            assert all(held)
+            assert _post(base + "/v1/segment", {"inputs": serving["small"]})[0] == 503
+            assert _post(base + "/v1/warmup", {"shape": [32, 32, 32]})[0] == 503
+        finally:
+            for _ in held:
+                service._admission.release()
+        garbage = tmp_path / "g.nii.gz"
+        garbage.write_bytes(b"not a nifti volume at all")
+        cap, service.max_volume_voxels = service.max_volume_voxels, 1000
+        try:
+            assert _post(base + "/v1/segment", {"inputs": serving["small"]})[0] == 400  # oversize
+            assert _post(base + "/v1/warmup", {"shape": [96, 96, 96]})[0] == 400
+        finally:
+            service.max_volume_voxels = cap
+        assert _post(base + "/v1/segment", {"inputs": {"CT": serving["small"]["CT"]}})[0] == 400
+        assert _post(base + "/v1/segment",
+                     {"inputs": {"CT": str(garbage), "PET": str(garbage)}})[0] == 400
+        assert _post(base + "/v1/segment", b"{not json", raw=True)[0] == 400
+        assert _post(base + "/v1/segment", [1, 2])[0] == 400
+        assert _post(base + "/v1/warmup", {"shape": [96, 96]})[0] == 400
+        assert _post(base + "/v1/segment", {"inputs": serving["small"], "uncertainty": True}
+                     )[0] == 400  # uncertainty without output_dir
+        assert _post(base + "/v1/nothing", {})[0] == 404
+        with urllib.request.urlopen(base + "/v1/stats", timeout=30) as r:
+            stats = json.loads(r.read())
+        assert stats["rejected"] >= 2 and stats["client_errors"] >= 4
+        assert stats["device_s"]["p50"] > 0 and stats["window"] >= 1
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=30)
+
+
+def test_serve_mode_answers_and_drains_on_sigterm(world, serving):
+    """``--mode serve`` in a process of its own: it binds an OS-assigned
+    port, serves one request, and on SIGTERM drains and exits 0 with the
+    final stats in its log."""
+    env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "multimodal_organ_segmentation_tpu_torch", "--mode", "serve",
+         "--config", str(world["config"]), "--checkpoint", str(world["ckpt"]),
+         "--device", "cpu", "--port", "0"],
+        cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    lines, port = [], {}
+
+    def watch():
+        for line in proc.stdout:
+            lines.append(line)
+            m = re.search(r"http://[\d.]+:(\d+)", line)
+            if m and "port" not in port:
+                port["port"] = int(m.group(1))
+
+    watcher = threading.Thread(target=watch, daemon=True)
+    watcher.start()
+    try:
+        for _ in range(1200):
+            if "port" in port or proc.poll() is not None:
+                break
+            watcher.join(timeout=0.1)
+        assert "port" in port, "".join(lines)[-2000:]
+        code, res = _post(f"http://127.0.0.1:{port['port']}/v1/segment",
+                          {"inputs": serving["small"], "case_id": "sub"})
+        assert code == 200 and res["shape"] == list(SMALL)
+        proc.send_signal(signal.SIGTERM)
+        assert proc.wait(timeout=120) == 0
+        watcher.join(timeout=30)
+        log = "".join(lines)
+        assert "SIGTERM: draining" in log
+        final = json.loads(log.split("final stats: ")[1].splitlines()[0])
+        assert final["requests"] == 1
+    finally:
+        if proc.poll() is None:
+            proc.kill()

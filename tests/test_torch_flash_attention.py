@@ -103,9 +103,11 @@ def test_flash_attention_on_cpu_runs_the_plain_version():
     out = tfa.flash_attention(q, k, v)
     assert torch.equal(out, tatt.blockwise_attention(q, k, v, kv_block=512))
     assert tfa.flash_attention.launches == before  # only a kernel launch counts
-    # the dispatch sends a CPU tensor to the plain version whatever use_kernel says
+    # the dispatch sends an f32 CPU tensor through the op, i.e. to its plain
+    # version; use_kernel=False (and bf16 on the CPU) takes blockwise(kv_block)
+    assert torch.equal(tatt.multi_head_attention(q, k, v, use_kernel=True), out)
     plain = tatt.blockwise_attention(q, k, v, kv_block=2048)
-    assert torch.equal(tatt.multi_head_attention(q, k, v, use_kernel=True), plain)
+    assert torch.equal(tatt.multi_head_attention(q, k, v, use_kernel=False), plain)
 
 
 @pytest.mark.parametrize(

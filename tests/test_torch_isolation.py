@@ -40,7 +40,9 @@ def test_port_and_chip_smoke_import_no_jax():
                 "data.dataset", "data.dataloader", "utils.prng", "utils.io", "utils.nifti",
                 "utils.config", "utils.logger", "ops.resize", "ops.edt", "ops.postprocess",
                 "ops.sliding_window", "data.transforms", "cli", "__main__", "models.unet3d",
-                "models.attention_unet", "models.heads", "models.dual_encoder"):
+                "models.attention_unet", "models.heads", "models.dual_encoder", "serving",
+                "serving.server", "serving.tuner", "models.program_export",
+                "models.torch_import", "models.torch_export", "utils.tensorboard"):
         assert f"{pkg}.{new}" in mods, new
     code = (
         "import importlib, json, sys\n"

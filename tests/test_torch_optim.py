@@ -119,8 +119,48 @@ def test_learning_rate_accessors_and_adafactor():
     opt = toptim.make_optimizer(ConfigNode(_cfg("adamw", 0.0, 0.0)), p)
     assert toptim.get_learning_rate(opt) == 1e-2
     assert toptim.get_learning_rate(toptim.set_learning_rate(opt, 3e-4)) == 3e-4
-    with pytest.raises(NotImplementedError, match="adafactor"):
-        toptim.make_optimizer(ConfigNode(_cfg("adafactor", 0.0, 0.0)), p)
+    opt = toptim.make_optimizer(ConfigNode(_cfg("adafactor", 1e-3, 0.0)), p)
+    assert isinstance(opt.inner, toptim.Adafactor) and opt.param_groups[0]["weight_decay"] == 1e-3
+
+
+def _factored_tree(seed=4):
+    """The small tree plus a tensor whose two largest axes reach optax's
+    128 (factored second moments) and one whose second-largest does not."""
+    params, grads = _tree(seed)
+    rng = np.random.default_rng(seed + 1)
+    for k, shape in (("f", (2, 130, 128)), ("n", (127, 300))):
+        params[k] = rng.normal(size=shape).astype(np.float32)
+        for scale, g in zip((1.0, 0.1, 3.0, 0.5, 2.0), grads):
+            g[k] = (scale * rng.normal(size=shape)).astype(np.float32)
+    return params, grads
+
+
+@pytest.mark.parametrize("clip", [0.0, 0.7])
+@pytest.mark.parametrize("wd", [0.0, 1e-2])
+def test_adafactor_matches_optax(wd, clip):
+    """optax.adafactor with its defaults (factored rms, block-rms clipping,
+    parameter-scale, decay) over five steps with changing learning rates."""
+    params, grads = _factored_tree()
+    cfg = _cfg("adafactor", wd, clip)
+    lrs = [1e-2, 2e-2, 5e-3, 1e-2, 3e-2]
+    ref = _run_jax(cfg, params, grads, lrs)
+    out = _run_torch(cfg, params, grads, lrs)
+    for k in params:
+        np.testing.assert_allclose(out[k], ref[k], rtol=0, atol=TOL, err_msg=k)
+        assert not np.array_equal(out[k], params[k]), k
+
+
+def test_adafactor_factors_the_same_axes_in_torch_layout():
+    """A flax Dense kernel ``[in, out]`` is a torch Linear ``[out, in]``: the
+    factored axes are found by size, so the transposed tensor takes the
+    transposed update (up to the order of one mean)."""
+    params, grads = _factored_tree(7)
+    lrs = [1e-2] * STEPS
+    ref = _run_jax(_cfg("adafactor", 0.0, 0.0), {"k": params["f"][0]},
+                   [{"k": g["f"][0]} for g in grads], lrs)
+    out = _run_torch(_cfg("adafactor", 0.0, 0.0), {"k": params["f"][0].T},
+                     [{"k": g["f"][0].T} for g in grads], lrs)
+    np.testing.assert_allclose(out["k"].T, ref["k"], rtol=0, atol=TOL)
 
 
 SCHEDULES = {

@@ -225,13 +225,15 @@ def test_scan_tree_converts_to_the_unrolled_state():
 
 
 def test_unported_options_raise():
-    """monai_compat, the perturb points and tensor parallelism raise; deep
-    supervision builds (``test_deep_supervision_matches_flax``), and so does
-    every other model of the registry: only an unknown name raises."""
+    """The perturb points and tensor parallelism raise; monai_compat builds
+    (``test_torch_reference_checkpoint.py``) but, as the JAX ``build_swin_unetr``,
+    refuses this flagship's cross-attention fusion; deep supervision builds
+    (``test_deep_supervision_matches_flax``), and so does every other model
+    of the registry: only an unknown name raises."""
     for key, value in (("monai_compat", True),):
         cfg = _model_config()
         cfg["model"]["backbone"][key] = value
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(ValueError, match="cross_attention"):
             build_model(cfg, device="cpu")
     cfg = _model_config()
     cfg["model"]["enable_perturb"] = True

@@ -197,11 +197,13 @@ def test_freeze_for_inference_is_the_serving_model(full_run, data_root, tmp_path
 
 
 def test_later_slices_raise_by_name(data_root, tmp_path):
-    """What later slices bring raises by name: meshes, ZeRO-1, TensorBoard,
-    epoch profiles, reference-weight import, multi-process case shards. The
-    evaluation slice's parts (native eval, predict, native mid-train
-    validation, the transform graph) now run: ``test_torch_cli.py`` and
-    ``test_torch_transforms.py`` hold them to the JAX package."""
+    """What later slices bring raises by name: meshes, ZeRO-1, multi-process
+    case shards. TensorBoard, epoch profiles and reference-weight import now
+    run (``test_tensorboard_and_profile_of_a_run``,
+    ``test_torch_reference_checkpoint.py``); the evaluation slice's parts
+    (native eval, predict, native mid-train validation, the transform graph)
+    too: ``test_torch_cli.py`` and ``test_torch_transforms.py`` hold them to
+    the JAX package."""
     cfg = _config(data_root, tmp_path, "later")
     with pytest.raises(NotImplementedError, match="multi-device"):
         Trainer(cfg, device="cpu", mesh=object())
@@ -210,15 +212,6 @@ def test_later_slices_raise_by_name(data_root, tmp_path):
         bad.set(key, value)
         with pytest.raises(NotImplementedError):
             Trainer(bad, device="cpu")
-    for key, value in (("experiment.tensorboard", True), ("hardware.profile_dir", str(tmp_path))):
-        bad = _config(data_root, tmp_path, "later3")
-        bad.set(key, value)
-        with pytest.raises(NotImplementedError):
-            Trainer(bad, train_loader=[], device="cpu").train()
-    bad = _config(data_root, tmp_path, "later4")
-    bad.set("model.pretrained", "weights.pth")
-    with pytest.raises(NotImplementedError, match="checkpoint-import"):
-        Trainer(bad, device="cpu").init_state()
     # dice_native needs native validation, as in the JAX trainer
     bad = _config(data_root, tmp_path, "later5", checkpoint={"monitor": "dice_native"})
     with pytest.raises(ValueError, match="native_val_every"):
@@ -229,6 +222,54 @@ def test_later_slices_raise_by_name(data_root, tmp_path):
     aug.set("data.augmentation", {"enabled": True, "random_flip": True})
     batch = next(iter(get_dataloader(aug, "train", device="cpu")))
     assert batch["image"].shape == (1, 32, 32, 32, 2) and isinstance(batch["image"], torch.Tensor)
+
+
+def test_tensorboard_and_profile_of_a_run(data_root, tmp_path):
+    """``experiment.tensorboard``: the JAX trainer's per-epoch scalars in
+    ``<output>/tb``, kept across a restart; ``hardware.profile_dir``: a
+    torch.profiler trace of epoch ``hardware.profile_epoch`` (tiny UNet3D)."""
+    from multimodal_organ_segmentation_tpu_torch.utils.tensorboard import read_scalar_events
+
+    cfg = _config(data_root, tmp_path, "tb")
+    cfg.set("model", {"name": "unet3d", "in_channels": 2, "out_channels": 8,
+                      "backbone": {"features": [4, 8], "img_size": [32, 32, 32]},
+                      "head": {"type": "conv", "dropout": 0.0}})
+    cfg.set("training.epochs", 2)
+    cfg.set("training.batch_size", 2)
+    cfg.set("training.accumulation_steps", 4)  # one step an epoch
+    cfg.set("experiment.tensorboard", True)
+    cfg.set("hardware.profile_dir", str(tmp_path / "prof"))
+    cfg.set("hardware.profile_epoch", 1)
+    _trainer(cfg).train()
+    (events,) = sorted((tmp_path / "tb" / "tb").glob("events.out.tfevents.*"))
+    scalars = read_scalar_events(events)
+    assert set(scalars) == {"loss/train", "loss/val", "metrics/val_dice", "lr",
+                            "time/epoch_seconds"}
+    assert [s for s, _ in scalars["loss/train"]] == [1, 2]
+    trace = json.loads((tmp_path / "prof" / "epoch1.pt.trace.json").read_text())
+    assert any("aten::" in str(e.get("name", "")) for e in trace["traceEvents"])
+    # a longer run over the same directory keeps the finished epochs' points
+    cfg.set("training.epochs", 3)
+    cfg.set("hardware.profile_dir", None)
+    _trainer(cfg, resume_from=str(tmp_path / "tb" / "last")).train()
+    (events,) = sorted((tmp_path / "tb" / "tb").glob("events.out.tfevents.*"))
+    assert [s for s, _ in read_scalar_events(events)["loss/train"]] == [1, 2, 3]
+
+
+def test_tensorboard_writer_writes_the_jax_bytes(tmp_path, monkeypatch):
+    from multimodal_organ_segmentation_tpu.utils import tensorboard as jtb
+    from multimodal_organ_segmentation_tpu_torch.utils import tensorboard as ttb
+
+    for mod, name in ((jtb, "jax"), (ttb, "port")):
+        monkeypatch.setattr(mod.time, "time", lambda: 1700000000.25)
+        with mod.SummaryWriter(tmp_path / name) as w:
+            w.add_scalar("loss/train", 0.5, 1)
+            w.add_scalars({"lr": 1e-3, "metrics/val_dice": float("nan"), "n": 3}, step=2)
+    (a,), (b,) = (sorted((tmp_path / n).iterdir()) for n in ("jax", "port"))
+    # the name ends in a per-process file counter
+    assert a.name.rsplit(".", 1)[0] == b.name.rsplit(".", 1)[0]
+    assert a.read_bytes() == b.read_bytes()
+    assert ttb.read_scalar_events(b) == jtb.read_scalar_events(a)
 
 
 def test_trainer_without_a_device_needs_cuda(data_root, tmp_path, monkeypatch):
