@@ -81,7 +81,26 @@ Phases (any failure exits non-zero; no phase's error is caught):
    program's custom ops as planned; then ``--format torch`` of a
    ``monai_compat`` SwinUNETR (fs 48, depths 2-2-2-2) and ``--pretrained``
    of that ``.pth``: the weights carried exactly, one 96³ tile through
-   kernel A against the plain path in f32 and bf16.
+   kernel A against the plain path in f32 and bf16;
+12. explain — ``--mode explain``'s library calls on the flagship at full
+   width from a port checkpoint of a seeded init (the card has neither
+   matplotlib nor sklearn: no figure, no t-SNE embedding; the CPU tests run
+   the CLI with them), over a 192×192×256 and two 128×128×112 synthetic
+   CT+PET cases: GradCAM on the last perturbation point, attention saliency
+   and integrated gradients on the native grids (chunks of 4 tiles,
+   forward and backward through A's and B's custom ops), the capture forward
+   (dense window attention, kernel B) and IG on the 96³ resize, the pooled
+   t-SNE features; every map finite on its grid, each tool's wall time, the
+   peak memory, A's and B's launches held to the plans (all ``mma``; the
+   capture forward launches B and not A); one f32 tile's GradCAM, attention
+   probabilities, input gradient and IG through the kernels against the
+   plain versions, GradCAM and the input gradient shown to fail with a
+   1e-4 error planted in A, and IG's sum against the midpoint sum of F's
+   central differences;
+13. analysis — ``--mode analysis --generate-report`` through ``cli.main`` on
+   the [cli] phase's mask of the 192×192×256 case and a synthetic SUV volume
+   on its grid: SUV, TMTV and TLG numbers against the same functions on CPU
+   tensors, the masks equal, the CSV and XLSX columns the JAX tables'.
 
 The line before the last holds one JSON object ``{"kernels": [...]}``;
 the last line is ``{"ok": true, "device": {...}}``. Without a CUDA device
@@ -1142,10 +1161,11 @@ def _cli(argv, device: str) -> float:
     return time.perf_counter() - t0
 
 
-def phase_cli(serve_ms: float, device: str = "cuda") -> dict:
+def phase_cli(serve_ms: float, device: str = "cuda") -> tuple:
     """``--mode train``, ``inference`` and ``eval`` through ``cli.main`` on
     the flagship YAML (full width and depth, augmentation on, ``--device
-    cuda``). Returns kernel A's and B's launches over the inference runs.
+    cuda``). Returns kernel A's and B's launches over the inference runs,
+    and a directory holding the 192×192×256 case's mask for [analysis].
     (``device="cpu"`` rehearses the phase's control flow on the CPU.)"""
     import torch
 
@@ -1366,8 +1386,11 @@ def phase_cli(serve_ms: float, device: str = "cuda") -> dict:
         f"surface metrics (HD95 + NSD + ASSD, EDT included) host ms per case "
         f"{[round(t, 1) for t in surface_ms]}")
     del model
+    keep = Path(tempfile.mkdtemp(prefix="chip_smoke_analysis_", dir="outputs")).resolve() / "case"
+    keep.mkdir()
+    shutil.copy(work / "pred" / "flagship_pred.nii.gz", keep)
     shutil.rmtree(work)
-    return launches
+    return launches, keep
 
 
 def add_counts(*runs) -> dict:
@@ -1993,6 +2016,366 @@ def models_cli(trainer, rng) -> dict:
     return launches
 
 
+# The [explain] phase: the flagship's three CT+PET cases, the cuts of its
+# depth (IG steps of explainability.shap.n_samples: 100, the explain chunk of
+# inference.batch_size: 15) and the limits of its checks.
+EXPLAIN_CASES = {"large": VOLUME, "small_a": (128, 128, 112), "small_b": (128, 128, 112)}
+EXPLAIN_IG_STEPS = 8
+EXPLAIN_CHUNK = 4  # tiles a forward + backward: 15 without remat would not fit the card
+# f32 tile, kernels against the plain versions: the GradCAM map after ~40
+# layers (each op of the kernels a few ulp off: ~1e-5 relative on the
+# gradients); the captured probabilities after kernel B at /8 and /16 only.
+# The input gradients of this seeded model are ill-conditioned in f32: a
+# 1e-7 relative jitter of the input moves the input gradient at x by about
+# 2e-3 and the IG map by about 3e-3 (relative L2), which is what the kernels'
+# f32 routes move them by too. The input gradient at x (gradient SHAP's, one
+# backward away from the jump of F near the mean-image baseline) is held to
+# a fixed relative L2 limit, the IG map to 3x its own jitter floor. Each run
+# also plants a 1e-4 scale of kernel A's output: GradCAM and the gradient at
+# x must fail their limits with it, or the checks could not see such an
+# error. A 1e-4 scale of B's output is printed, not held: at this seeded
+# init B's output averages v over 1728 or more tokens, which leaves it small
+# beside its residual, and the instance norm after the residual removes its
+# mean, so the scale moves no map beyond the f32 floor (B is held at its
+# shapes by the [kernels] phase).
+EXPLAIN_TOL = {"gradcam": 1e-3, "attn_probs": 1e-4, "grad_x": 5e-3}
+IG_FLOOR_FACTOR = 3.0
+IG_JITTER = 1e-7
+PLANTED = 1e-4
+# IG's sum against the midpoint sum of central differences of F along the
+# same path (the directional derivative IG evaluates at each alpha), f32
+IG_FD_RTOL = 1e-2
+
+
+def explain_config(work: Path, mixed_precision: str = "bf16") -> dict:
+    """The flagship's dict with every explainability tool on, on native
+    grids, the explain chunk and the IG steps of this phase."""
+    cfg = serving_config(work)
+    cfg["hardware"]["mixed_precision"] = mixed_precision
+    cfg["inference"]["batch_size"] = EXPLAIN_CHUNK
+    cfg["explainability"] = {"native_grid": True, "gradcam": {"enabled": True},
+                             "attention_maps": {"enabled": True},
+                             "shap": {"enabled": True, "n_samples": EXPLAIN_IG_STEPS},
+                             "tsne": {"enabled": False}}
+    return cfg
+
+
+def phase_explain(device: str = "cuda") -> dict:
+    """``--mode explain``'s library calls on the flagship at full width (the
+    card lacks matplotlib and sklearn, so no figure is drawn; the CPU tests
+    run the CLI with them): a port checkpoint of a seeded init, three
+    synthetic CT+PET cases, per case GradCAM on the last perturbation point,
+    attention saliency and IG on the native grid through the sliding window,
+    the capture forward and IG on the ROI-resized input, then the pooled
+    t-SNE features. Maps finite on each native grid; A's and B's launches
+    held to the plans; one f32 tile through the kernels against the plain
+    versions and with an error planted in A or B; IG's sum against F's
+    differences. Returns the launches."""
+    import importlib.util
+
+    import torch
+
+    from multimodal_organ_segmentation_tpu_torch.explainability import (
+        AttentionVisualizer,
+        GradCAM,
+        SHAPAnalyzer,
+        TSNEVisualizer,
+        perturb_names,
+    )
+    from multimodal_organ_segmentation_tpu_torch.explainability.gradcam import logits_of
+    from multimodal_organ_segmentation_tpu_torch.explainability.runner import (
+        discover_cases,
+        load_explain_model,
+    )
+    from multimodal_organ_segmentation_tpu_torch.models import fusion as fusion_module
+    from multimodal_organ_segmentation_tpu_torch.models import swin_unetr as swin_unetr_module
+    from multimodal_organ_segmentation_tpu_torch.models.build import build_model
+    from multimodal_organ_segmentation_tpu_torch.models.swin_unetr import set_use_kernels
+    from multimodal_organ_segmentation_tpu_torch.ops.flash_attention import flash_attention
+    from multimodal_organ_segmentation_tpu_torch.ops.resize import resize_linear
+    from multimodal_organ_segmentation_tpu_torch.ops.sliding_window import make_tile_grid
+    from multimodal_organ_segmentation_tpu_torch.ops.window_attention import window_mha
+    from multimodal_organ_segmentation_tpu_torch.train.checkpoint import save_checkpoint
+    from multimodal_organ_segmentation_tpu_torch.utils.config import ConfigNode
+    from multimodal_organ_segmentation_tpu_torch.utils.io import load_nifti, save_nifti
+
+    absent = [m for m in ("matplotlib", "sklearn") if importlib.util.find_spec(m) is None]
+    log(f"[explain] host renderers run: none (the figures and the t-SNE embedding are drawn "
+        f"by the CPU tests of --mode explain); absent here: {absent or 'none'}")
+    log(f"[explain] cuts: IG steps {EXPLAIN_IG_STEPS} (explainability.shap.n_samples: 100), "
+        f"explain chunk {EXPLAIN_CHUNK} tiles (inference.batch_size: 15); t-SNE: features only")
+    Path("outputs").mkdir(exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_explain_", dir="outputs")).resolve()
+    cfg = explain_config(work)
+    config = ConfigNode(cfg)
+    seed = cfg["experiment"]["seed"]
+    modalities = cfg["data"]["modalities"]
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=device, train=True,
+                        generator=torch.Generator().manual_seed(seed))
+    save_checkpoint({"step": 0, "params": model.state_dict(), "opt_state": None,
+                     "ema_params": None}, work / "ckpt")
+    del model
+    rng = np.random.default_rng(seed)
+    for case, shape in EXPLAIN_CASES.items():
+        save_nifti(rng.standard_normal(shape, np.float32), work / "input" / "ct" / f"{case}.nii.gz")
+        save_nifti(2 * np.abs(rng.standard_normal(shape, np.float32)),
+                   work / "input" / "pet" / f"{case}.nii.gz")
+    model = load_explain_model(config, work / "ckpt", device)
+    log(f"[explain] checkpoint (seed {seed}) and {len(EXPLAIN_CASES)} cases "
+        f"{list(EXPLAIN_CASES.values())} written, model loaded in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    roi = tuple(cfg["model"]["backbone"]["img_size"])
+    sw = dict(roi_size=roi, overlap=cfg["inference"]["sliding_window"]["overlap"],
+              sw_batch_size=EXPLAIN_CHUNK)
+    target = perturb_names(model)[-1]
+    cam_gen, viz = GradCAM(model, [target]), AttentionVisualizer(model)
+    shap = SHAPAnalyzer(model, n_steps=EXPLAIN_IG_STEPS)
+    times: dict = {}
+
+    def timed(tool, fn):
+        _sync(device)
+        start = time.perf_counter()
+        out = fn()
+        _sync(device)
+        times.setdefault(tool, []).append(time.perf_counter() - start)
+        return out
+
+    reset_launches(window_mha, flash_attention)
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    samples, first_x = [], None
+    for case, mods in discover_cases(work / "input", modalities).items():
+        image = np.stack([load_nifti(mods[m]) for m in modalities], axis=-1)
+        x = resize_linear(torch.from_numpy(image).to(device), roi, (0, 1, 2))[None]
+        first_x = x if first_x is None else first_x
+        samples.append({"image": x[0]})
+        maps = {}
+        cam = timed("gradcam native", lambda: cam_gen.generate_native(image, 1, **sw))[target]
+        maps[f"{case}_gradcam_{target.replace('/', '_')}.nii.gz"] = cam
+        sals = timed("attention native", lambda: viz.saliency_native(image, **sw))
+        maps.update({f"{case}_attention_native_{i}.nii.gz": s for i, s in enumerate(sals)})
+        probs = timed("attention capture", lambda: viz.capture(x))
+        attr = timed("ig", lambda: shap.integrated_gradients(x, 1))
+        attr_n = timed("ig native", lambda: shap.integrated_gradients_native(image, 1, **sw))
+        maps.update({f"{case}_ig_native_{m.lower()}.nii.gz": attr_n[..., i]
+                     for i, m in enumerate(modalities)})
+        bad = [n for n, v in maps.items() if v.shape != image.shape[:3] or not np.isfinite(v).all()]
+        bad += [n for n, v in probs.items() if not np.isfinite(v).all()]
+        if len(sals) != 4 or bad or not np.isfinite(attr).all() or attr.shape != tuple(x.shape):
+            raise SystemExit(f"[explain] {case}: maps not finite or not on the native grid: "
+                             f"{bad}, {len(sals)} saliency maps")
+        for name, v in maps.items():
+            save_nifti(v, work / "explain" / name)
+        log(f"[explain] {case} {image.shape}: {len(maps)} maps on the native grid, finite: "
+            f"GradCAM on {target} in [{cam.min():.3f}, {cam.max():.3f}], {len(sals)} saliency "
+            f"maps, IG native in [{attr_n.min():.3e}, {attr_n.max():.3e}]; {len(probs)} "
+            f"attention tensors captured; IG on the 96^3 resize sums to {attr.sum():.4e}")
+    feats = timed("tsne features", lambda: TSNEVisualizer(model).collect(samples))["features"]
+    launches = attention_launches()
+    peak = torch.cuda.max_memory_allocated() / 2**30 if device == "cuda" else float("nan")
+    if feats.shape != (len(samples), 16 * cfg["model"]["backbone"]["feature_size"]) or not \
+            np.isfinite(feats).all():
+        raise SystemExit(f"[explain] t-SNE features {feats.shape} not finite or not pooled")
+    log("[explain] wall s per tool (one per case): " + "; ".join(
+        f"{tool} {[round(t, 2) for t in ts]}" for tool, ts in times.items()))
+    log(f"[explain] peak device memory {peak:.2f} GiB; t-SNE features {feats.shape}")
+
+    # launches: forwards through A and B (GradCAM's chunks, IG's chunks x
+    # steps, and on one tile IG's steps and the t-SNE forward) and through B
+    # alone (the capture forwards: the saliency chunks and the one-tile capture)
+    chunks = sum(make_tile_grid(shape, roi, sw["overlap"], EXPLAIN_CHUNK)[0].shape[0]
+                 for shape in EXPLAIN_CASES.values())
+    n, k = EXPLAIN_IG_STEPS, len(EXPLAIN_CASES)
+    expect = add_counts(predicted_launches(EXPLAIN_CHUNK, chunks * (1 + n), chunks * (2 + n)),
+                        predicted_launches(1, k * (n + 1), k * (n + 2)))
+    log(f"[explain] kernels {json.dumps(launches)} expected {json.dumps(expect)} ({chunks} "
+        f"chunks of {EXPLAIN_CHUNK} tiles, {k} one-tile inputs)")
+    if launches != expect or any(c for counts in launches.values()
+                                 for route, c in counts.items() if route != "mma"):
+        raise SystemExit("[explain] kernel launches differ from the plans or left mma")
+    reset_launches(window_mha, flash_attention)
+    viz.capture(first_x)
+    capture_only, expect = attention_launches(), predicted_launches(1, 0, 1)
+    log(f"[explain] one capture forward launches {json.dumps(capture_only)} expected "
+        f"{json.dumps(expect)}")
+    if capture_only != expect:
+        raise SystemExit("[explain] the capture forward must launch B and not A")
+    del model, cam_gen, viz, shap, samples
+    torch.cuda.empty_cache()
+
+    # one f32 tile (TF32 off): every map through the kernels against the same
+    # map through the plain versions, the same with a planted error in A or
+    # B, then IG's sum against F's differences
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    m32 = load_explain_model(ConfigNode(explain_config(work, "fp32")), work / "ckpt", device)
+    x = first_x.float()
+
+    def f32_maps(xin, capture=True):
+        shap32 = SHAPAnalyzer(m32, EXPLAIN_IG_STEPS)
+        out = {"gradcam": GradCAM(m32, [target]).generate(xin)[target],
+               "grad_x": shap32._grad(xin, 1).cpu().numpy(),
+               "ig": shap32.integrated_gradients(xin)}
+        if capture:
+            out["attn_probs"] = AttentionVisualizer(m32).capture(xin)
+        return out
+
+    maps = {}
+    for use in (False, True):
+        set_use_kernels(m32, use)
+        reset_launches(window_mha, flash_attention)
+        maps["kernels" if use else "plain"] = f32_maps(x)
+        routes = attention_launches()
+        if use and any(route != "f32" and c for counts in routes.values()
+                       for route, c in counts.items()):
+            raise SystemExit(f"[explain] f32 tile left the f32 routes: {routes}")
+    jitter = 1 + IG_JITTER * torch.randn(x.shape, generator=torch.Generator().manual_seed(seed))
+    maps["jitter"] = f32_maps(x * jitter.to(device), capture=False)
+    for kernel, module, name in (("A", swin_unetr_module, "window_mha"),
+                                 ("B", fusion_module, "multi_head_attention")):
+        op = getattr(module, name)
+        setattr(module, name, lambda *a, _op=op, **k: _op(*a, **k) * (1 + PLANTED))
+        try:
+            maps[f"planted {kernel}"] = f32_maps(x, capture=False)
+        finally:
+            setattr(module, name, op)
+
+    def rel(a, b):
+        return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+    plain = maps["plain"]
+    errs = {run: {"gradcam": float(np.abs(maps[run]["gradcam"] - plain["gradcam"]).max()),
+                  "grad_x": rel(maps[run]["grad_x"], plain["grad_x"]),
+                  "ig": rel(maps[run]["ig"], plain["ig"])}
+            for run in ("kernels", "jitter", "planted A", "planted B")}
+    errs["kernels"]["attn_probs"] = max(float(np.abs(maps["kernels"]["attn_probs"][name] - v).max())
+                                        for name, v in plain["attn_probs"].items())
+    limits = dict(EXPLAIN_TOL, ig=IG_FLOOR_FACTOR * errs["jitter"]["ig"])
+    for name, err in errs["kernels"].items():
+        others = "; ".join(f"{run} {errs[run][name]:.3e}" for run in ("jitter", "planted A",
+                                                                      "planted B")
+                           if name in errs[run])
+        log(f"[explain] f32 96^3 tile against plain, {name} "
+            f"{'max |diff|' if name in ('gradcam', 'attn_probs') else 'relative L2'}: kernels "
+            f"{err:.3e} (limit {limits[name]:.3e}) {'ok' if err <= limits[name] else 'FAIL'}"
+            + (f"; {others}" if others else ""))
+    if any(err > limits[name] for name, err in errs["kernels"].items()):
+        raise SystemExit("[explain] a map through the kernels disagrees with the plain versions")
+    blind = [name for name in ("gradcam", "grad_x") if errs["planted A"][name] <= limits[name]]
+    log(f"[explain] a planted {PLANTED:.0e} scale of A's output fails "
+        f"{[n for n in ('gradcam', 'grad_x', 'ig') if errs['planted A'][n] > limits[n]]}; "
+        f"of B's {[n for n in ('gradcam', 'grad_x', 'ig') if errs['planted B'][n] > limits[n]]} "
+        f"(not held: B's output, an average over all tokens, is small beside its residual and "
+        f"the instance norm after it removes its mean)")
+    if blind:
+        raise SystemExit(f"[explain] {blind} cannot see a planted {PLANTED:.0e} error in A")
+    set_use_kernels(m32, True)
+
+    base = SHAPAnalyzer._baseline(x)
+
+    def score(alpha: float) -> float:
+        with torch.no_grad():
+            return float(logits_of(m32(base + alpha * (x - base)))[..., 1].double().sum())
+
+    h = 0.01 / n
+    riemann = sum((score((j + 0.5) / n + h) - score((j + 0.5) / n - h)) / (2 * h)
+                  for j in range(n)) / n
+    total = float(maps["kernels"]["ig"].astype(np.float64).sum())
+    completeness = score(1.0) - score(0.0)
+    gap_fd = abs(total - riemann) / abs(riemann)
+    log(f"[explain] IG ({n} midpoint steps, f32 tile): sum of attributions {total:.6e}; midpoint "
+        f"sum of F's central differences along the path {riemann:.6e}: relative gap "
+        f"{gap_fd:.3e} (tol {IG_FD_RTOL:.0e}) {'ok' if gap_fd <= IG_FD_RTOL else 'FAIL'}; "
+        f"F(x) - F(baseline) {completeness:.6e}: relative gap "
+        f"{abs(total - completeness) / abs(completeness):.3e} (not held: F jumps within "
+        f"alpha < 0.01 of the mean-image baseline, which {n} midpoints do not resolve)")
+    if gap_fd > IG_FD_RTOL:
+        raise SystemExit("[explain] IG's sum disagrees with F's differences along its path")
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    del m32
+    shutil.rmtree(work)
+    return launches
+
+
+def phase_analysis(case: Path, device: str = "cuda") -> None:
+    """``cli.main --mode analysis --generate-report`` on the [cli] phase's
+    predicted mask of the 192×192×256 case and a synthetic SUV volume on its
+    grid (histogram figures off: the card has no matplotlib). The SUV, TMTV
+    and TLG numbers against the same functions on CPU tensors, the masks
+    equal, the CSV and XLSX columns those of the JAX package's tables."""
+    import zipfile
+
+    from multimodal_organ_segmentation_tpu_torch.analysis import SUVAnalyzer, TMTVAnalyzer
+    from multimodal_organ_segmentation_tpu_torch.utils import nifti
+    from multimodal_organ_segmentation_tpu_torch.utils.config import load_config
+    from multimodal_organ_segmentation_tpu_torch.utils.io import load_nifti, save_nifti
+
+    img = nifti.load(str(case / "flagship_pred.nii.gz"))
+    seg = np.asarray(img.dataobj)
+    rng = np.random.default_rng(FLAGSHIP["experiment"]["seed"])
+    suv = rng.uniform(0.3, 1.5, seg.shape).astype(np.float32)
+    suv[seg == 5] = rng.normal(2.0, 0.3, int((seg == 5).sum()))
+    grid = np.stack(np.meshgrid(*[np.arange(n) for n in seg.shape], indexing="ij"), -1)
+    for center, radius, value in (((60, 70, 90), 8, 9.0), ((130, 120, 180), 12, 5.5),
+                                  ((100, 50, 60), 5, 3.2)):
+        suv[((grid - center) ** 2).sum(-1) <= radius**2] = value
+    del grid
+    save_nifti(suv, case / "pet_suv.nii.gz", affine=img.affine)
+    out, ref_out = case.parent / "out", case.parent / "cpu"
+    wall = _cli(["--mode", "analysis", "--config", FLAGSHIP_YAML, "--input", str(case), "--output",
+                 str(out), "--suv-analysis", "--tmtv-analysis", "--generate-report", "--set",
+                 "analysis.histogram.enabled=false", "--set",
+                 f"experiment.log_dir={case.parent / 'logs'}"], device)
+    config = load_config(FLAGSHIP_YAML)
+    organs = SUVAnalyzer(config, "cpu").analyze(case, ref_out)["organs"]
+    tmtv = TMTVAnalyzer(config, "cpu").analyze(case, ref_out)
+
+    def rows(path):
+        with open(path) as f:
+            return [line.rstrip("\n").split(",") for line in f]
+
+    suv_columns = ["organ", "label_id", "suv_max", "suv_mean", "suv_std", "suv_median",
+                   "suv_min", "volume_ml", "volume_voxels", "suv_40_volume", "suv_50_volume",
+                   "suv_60_volume"]
+    tmtv_columns = []
+    for v in tmtv.values():
+        tmtv_columns.extend(c for c in ["metric", *v] if c not in tmtv_columns)
+    worst = 0.0
+    for table, columns in (("suv_analysis", suv_columns), ("tmtv_analysis", tmtv_columns)):
+        got, ref = rows(out / f"{table}.csv"), rows(ref_out / f"{table}.csv")
+        with zipfile.ZipFile(out / f"{table}.xlsx") as z:
+            sheet = z.read("xl/worksheets/sheet1.xml").decode()
+        header = re.findall(r"<is><t>([^<]*)</t></is>", sheet)[:len(columns)]
+        if got[0] != columns or ref[0] != columns or header != columns or len(got) != len(ref) \
+                or sheet.count("<row ") != len(ref):
+            raise SystemExit(f"[analysis] {table}: columns {got[0]} / xlsx {header}, want "
+                             f"{columns}; {len(got)} rows, {len(ref)} on the CPU")
+        for a, b in zip(ref[1:], got[1:]):
+            for u, v in zip(a, b):
+                try:
+                    worst = max(worst, abs(float(v) - float(u)) / max(abs(float(u)), 1e-12))
+                except ValueError:
+                    if u != v:
+                        raise SystemExit(f"[analysis] {table}: {v!r} against {u!r} on the CPU")
+    masks = [m for m in ("tmtv_absolute", "tmtv_percentage", "tmtv_liver_based")
+             if not np.array_equal(load_nifti(out / f"{m}.nii.gz"),
+                                   load_nifti(ref_out / f"{m}.nii.gz"))]
+    reports = [r for r in ("report.md", "report.html", "report.docx") if not (out / r).exists()]
+    log(f"[analysis] --mode analysis on {seg.shape} (the [cli] mask, labels "
+        f"{sorted(np.unique(seg).tolist())}) in {wall:.2f} s of wall time: {len(organs)} organs; "
+        f"TMTV absolute {tmtv['absolute']['volume_ml']:.3f} ml (SUVmax "
+        f"{tmtv['absolute']['suv_max']:.3f}, SUVpeak {tmtv['absolute'].get('suv_peak', 0):.4f}), "
+        f"percentage {tmtv['percentage']['volume_ml']:.3f} ml, liver-based "
+        f"{tmtv['liver_based']['volume_ml']:.3f} ml, TLG {tmtv['tlg']['tlg']:.3f}; numbers "
+        f"against the CPU tensors: max relative |diff| {worst:.3e} (tol 1e-6); masks differing "
+        f"{masks}; CSV/XLSX columns as the JAX tables; reports missing {reports}")
+    if worst > 1e-6 or masks or reports:
+        raise SystemExit("[analysis] the card's analysis differs from the CPU's or lacks a file")
+    shutil.rmtree(case.parent)
+
+
 def phase_models() -> dict:
     """The other model families on the card: the 128³ DualEncoder tile check,
     serving every configuration of ``MODEL_KEYS``, the DualEncoder's training and its
@@ -2044,7 +2427,7 @@ def main(argv) -> int:
     torch.cuda.empty_cache()
     by_path["train"] = phase_train(profile)
     torch.cuda.empty_cache()
-    by_path["cli"] = phase_cli(serve_ms)
+    by_path["cli"], analysis_case = phase_cli(serve_ms)
     torch.cuda.empty_cache()
     by_path["models"] = phase_models()
     torch.cuda.empty_cache()
@@ -2054,6 +2437,9 @@ def main(argv) -> int:
     torch.cuda.empty_cache()
     by_path["export"] = phase_export(cfg, cfg_path, inputs, served_mask, work)
     torch.cuda.empty_cache()
+    by_path["explain"] = phase_explain()
+    torch.cuda.empty_cache()
+    phase_analysis(analysis_case)
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     kernels = []
     for name, s in summary.items():

@@ -8,16 +8,22 @@
     python -m multimodal_organ_segmentation_tpu_torch --mode tune --output tuned.yaml
     python -m multimodal_organ_segmentation_tpu_torch --mode export --format pt2 \
         --checkpoint outputs/x/best --output model.pt2
+    python -m multimodal_organ_segmentation_tpu_torch --mode explain \
+        --checkpoint outputs/x/best --input data/test --output explain --gradcam
+    python -m multimodal_organ_segmentation_tpu_torch --mode analysis \
+        --input case_dir --output analysis --suv-analysis --tmtv-analysis --generate-report
 
 The same mode vocabulary, flags and config overrides (``--set KEY=VALUE``)
 as the JAX CLI. ``train``, ``eval`` (resized-grid, or native-grid with
 ``evaluation.sliding_window: true``), ``inference``, ``serve`` (the HTTP
-service), ``tune`` (the serving tuner) and ``export`` (``--format torch``: a
-reference ``.pth``; ``--format pt2``: an exported program) run here; the
-offline-tail modes stay in the parser and raise ``NotImplementedError``
-naming their slice. Every mode runs on the CUDA device unless ``--device
-cpu`` asks for the CPU; without a card it raises, it never falls back to
-the CPU. Checkpoints are the port's own (``tree.pt`` directories).
+service), ``tune`` (the serving tuner), ``export`` (``--format torch``: a
+reference ``.pth``; ``--format pt2``: an exported program), ``explain``
+(GradCAM, attention maps, integrated gradients, t-SNE) and ``analysis``
+(SUV, TMTV/TLG, histograms, reports) run here; ``preprocess`` stays in the
+parser and raises ``NotImplementedError`` naming its slice. Every mode runs
+on the CUDA device unless ``--device cpu`` asks for the CPU; without a card
+it raises, it never falls back to the CPU. Checkpoints are the port's own
+(``tree.pt`` directories).
 """
 
 from __future__ import annotations
@@ -39,11 +45,7 @@ from multimodal_organ_segmentation_tpu_torch.utils.prng import set_seed
 _DEFAULT_CONFIG = str(Path(__file__).resolve().parents[1] / "configs" / "default.yaml")
 
 # modes of the JAX CLI that come with later slices of the port
-LATER_MODES = {
-    "preprocess": "offline-tail",
-    "analysis": "offline-tail",
-    "explain": "offline-tail",
-}
+LATER_MODES = {"preprocess": "preprocessing"}
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -53,7 +55,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     )
     parser.add_argument(
         "--mode", required=True,
-        choices=["train", "eval", "inference", "export", "serve", "tune", *LATER_MODES],
+        choices=["train", "eval", "inference", "export", "serve", "tune", "explain", "analysis",
+                 *LATER_MODES],
     )
     parser.add_argument("--config", default=_DEFAULT_CONFIG)
     parser.add_argument("--exp-name", dest="exp_name", default=None)
@@ -335,6 +338,49 @@ def run_tune(config, logger) -> None:
     )
 
 
+def run_explain(config, logger) -> None:
+    """GradCAM, attention maps, integrated gradients and t-SNE over the
+    cases under ``--input`` (``explainability/runner.py``)."""
+    from multimodal_organ_segmentation_tpu_torch.explainability import run_explainability
+
+    ckpt = config["_args"].get("checkpoint")
+    input_path = config["_args"].get("input")
+    output_path = config["_args"].get("output") or "outputs/explain"
+    if ckpt is None or input_path is None:
+        raise ValueError("--checkpoint and --input are required for explain mode")
+    run_explainability(config, ckpt, input_path, output_path, logger, device=_device(config))
+
+
+def run_analysis(config, logger) -> None:
+    """SUV, TMTV/TLG and histogram analysis of the SUV volume and
+    segmentation under ``--input`` (``analysis/``), and the report."""
+    from multimodal_organ_segmentation_tpu_torch.analysis import (
+        HistogramAnalyzer,
+        ReportGenerator,
+        SUVAnalyzer,
+        TMTVAnalyzer,
+    )
+
+    input_path = config["_args"].get("input")
+    output_path = config["_args"].get("output") or "outputs/analysis"
+    if input_path is None:
+        raise ValueError("--input is required for analysis mode")
+    device = _device(config)
+
+    logger.info(f"Analysis: {input_path} → {output_path}")
+    Path(output_path).mkdir(parents=True, exist_ok=True)
+    results = {}
+    if bool(config.get("analysis.suv.enabled", False)):
+        results["suv"] = SUVAnalyzer(config, device).analyze(input_path, output_path)
+    if bool(config.get("analysis.tmtv.enabled", False)):
+        results["tmtv"] = TMTVAnalyzer(config, device).analyze(input_path, output_path)
+    if bool(config.get("analysis.histogram.enabled", False)):
+        results["histogram"] = HistogramAnalyzer(config, device).analyze(input_path, output_path)
+    if config["_args"].get("generate_report", False):
+        ReportGenerator(config).generate(results, output_path)
+    logger.info("Analysis completed")
+
+
 def _later_mode(mode: str):
     def run(config, logger) -> None:
         from multimodal_organ_segmentation_tpu_torch.train.trainer import _later
@@ -370,7 +416,8 @@ def main(argv=None) -> None:
     logger.info(f"Config: {args.config}")
 
     runners = {"train": run_train, "eval": run_eval, "inference": run_inference,
-               "export": run_export, "serve": run_serve, "tune": run_tune}
+               "export": run_export, "serve": run_serve, "tune": run_tune,
+               "explain": run_explain, "analysis": run_analysis}
     runners.update({mode: _later_mode(mode) for mode in LATER_MODES})
     try:
         runners[args.mode](config, logger)

@@ -9,7 +9,7 @@ input, f32 channels-last logits, channels-first views inside.
 
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -22,7 +22,9 @@ from multimodal_organ_segmentation_tpu_torch.models.layers import (
     DownBlock3D,
     Dropout3D,
     cf,
+    cl,
     logits_out,
+    perturb_at,
 )
 from multimodal_organ_segmentation_tpu_torch.ops.resize import resize_linear
 
@@ -55,7 +57,8 @@ class AttentionUNet3D(nn.Module):
     """3D UNet with attention-gated skips: ``init_conv``, ``down{i}``, then
     per decoder level ``gate{j}`` (skip gated by the coarser features),
     ``up{j}_tconv`` (2× transposed conv), ``up{j}_conv`` (``ConvBlock3D`` on
-    the concat), dropout, ``out_conv`` in f32."""
+    the concat), dropout, ``out_conv`` in f32. ``forward``'s ``perturb`` takes
+    the perturbation points ``feat{i}`` (each encoder level's output)."""
 
     def __init__(self, in_channels: int = 2, out_channels: int = 8,
                  features: Sequence[int] = (32, 64, 128, 256, 512), norm: str = "instance",
@@ -75,20 +78,38 @@ class AttentionUNet3D(nn.Module):
         self.dropout = Dropout3D(dropout)
         self.out_conv = Conv3d(feats[0], out_channels, 1)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    @property
+    def perturb_points(self) -> List[str]:
+        """The names of the perturbation points."""
+        return [f"feat{i}" for i in range(len(self.features))]
+
+    def forward(
+        self,
+        x: torch.Tensor,
+        capture: bool = False,
+        perturb: Optional[Dict[str, torch.Tensor]] = None,
+        intermediates: Optional[dict] = None,
+    ) -> Union[torch.Tensor, Tuple[torch.Tensor, List[torch.Tensor]]]:
+        """Logits, or with ``capture`` ``(logits, hidden)``, ``hidden`` the
+        channels-last encoder features, bottleneck last. ``perturb`` takes the
+        live activations at ``feat0..feat{L-1}``, the same features. The
+        model sows no ``intermediates``: the dict stays empty."""
         levels = len(self.features)
-        x = self.init_conv(cf(x.to(self.dtype)))
+        x = perturb_at(perturb, "feat0", self.init_conv(cf(x.to(self.dtype))), channels_first=True)
         skips = [x]
         for i in range(levels - 1):
             x, _ = getattr(self, f"down{i}")(x)
+            x = perturb_at(perturb, f"feat{i + 1}", x, channels_first=True)
             skips.append(x)
+        hidden = [cl(s) for s in skips] if capture else None
         for j, i in enumerate(range(levels - 1, 0, -1)):
             gated = getattr(self, f"gate{j}")(skips[i - 1], x)
             x = getattr(self, f"up{j}_tconv")(x)
             if x.shape[2:] != gated.shape[2:]:
                 x = resize_linear(x, tuple(gated.shape[2:]), (2, 3, 4))
             x = getattr(self, f"up{j}_conv")(torch.cat([x, gated], dim=1))
-        return logits_out(self.out_conv, self.dropout(x))
+        logits = logits_out(self.out_conv, self.dropout(x))
+        return (logits, hidden) if capture else logits
 
     @property
     def encoder_channels(self) -> List[int]:

@@ -9,9 +9,13 @@ then stored in the compute dtype of ``hardware.mixed_precision``; for
 training (``train=True``) they stay f32 master weights and every op casts
 them to the compute dtype, as flax does.
 
-``build_model`` returns the backbone itself: the JAX package's
-``MultiModalSegmentationModel`` wrapper, ``capture`` and the perturb points
-serve only the explainability code and come with it.
+``build_model`` returns the backbone itself, without the JAX package's
+``MultiModalSegmentationModel`` wrapper, which only forwards ``capture``.
+Every model lists its perturbation points (the explainability code's
+gradients) and takes a ``perturb`` dict in ``forward``; they add no parameter
+or buffer, so ``model.enable_perturb``, which flax needs to create its
+perturbation variables, is accepted and ignored. The explainability code
+names the points as the wrapped flax tree does (``backbone/<point>``).
 """
 
 from __future__ import annotations
@@ -119,9 +123,6 @@ def build_model(
                 "build_model: no CUDA device; pass device='cpu' to run the port on the CPU"
             )
         device = "cuda"
-    if config.get("model.enable_perturb", False):
-        raise NotImplementedError("model.enable_perturb is not ported to the PyTorch package "
-                                  "yet; it comes with the explainability slice")
     name = str(config.get("model.name", "swin_unetr")).lower()
     dtype = compute_dtype(config)
     model = get_model(name)(config, dtype)

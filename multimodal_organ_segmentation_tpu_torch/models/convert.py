@@ -4,8 +4,10 @@
 params tree of any model of the registry, as nested dicts of numpy arrays
 (``jax.device_get`` of the tree, or the tree itself; bare, or wrapped as
 ``{"backbone": ...}`` by the JAX package's ``MultiModalSegmentationModel``,
-or a whole ``variables`` dict), and the ``batch_stats`` tree of a batch-norm
-model, and returns the port's ``state_dict``.
+or a whole ``variables`` dict, whose ``perturbations`` and ``intermediates``
+collections, as the JAX explainability runner builds them, hold no weights
+and are passed over), and the ``batch_stats`` tree of a batch-norm model,
+and returns the port's ``state_dict``.
 
 ``params_to_jax(name, state)`` is the inverse: a port ``state_dict`` back
 to numpy ``(params, batch_stats)`` trees (``batch_stats`` is {} without

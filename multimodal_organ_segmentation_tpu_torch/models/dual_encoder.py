@@ -19,7 +19,7 @@ the addition above the budget) take the mean of the other modalities.
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Tuple, Union
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 from torch import nn
@@ -40,6 +40,7 @@ from multimodal_organ_segmentation_tpu_torch.models.layers import (
     cf,
     cl,
     logits_out,
+    perturb_at,
     supervised_outputs,
 )
 from multimodal_organ_segmentation_tpu_torch.utils.config import deep_supervision
@@ -78,7 +79,9 @@ class DualEncoder(nn.Module):
     ``fusion_proj{l}`` / ``fusion_attn{l}`` / ``fusion_xattn{l}`` /
     ``fusion_bixattn{l}`` / ``fusion_suv{l}`` per level, ``up{j}``,
     ``ds_head{j}``, ``out_conv``. ``suv_channel`` is the input channel of
-    the PET/SUV volume that ``suv_guided`` fusion reads.
+    the PET/SUV volume that ``suv_guided`` fusion reads. ``forward``'s
+    ``perturb`` takes the perturbation points ``fused{l}`` (each level's
+    fused features).
     """
 
     def __init__(
@@ -145,7 +148,24 @@ class DualEncoder(nn.Module):
         token budget, and fuses by addition above it."""
         return grid[0] * grid[1] * grid[2] <= self.xattn_max_tokens
 
-    def forward(self, x: torch.Tensor) -> Union[torch.Tensor, List[torch.Tensor]]:
+    @property
+    def perturb_points(self) -> List[str]:
+        """The names of the perturbation points."""
+        return [f"fused{i}" for i in range(len(self.features))]
+
+    def forward(
+        self,
+        x: torch.Tensor,
+        capture: bool = False,
+        perturb: Optional[Dict[str, torch.Tensor]] = None,
+        intermediates: Optional[Dict[Tuple[str, ...], List[torch.Tensor]]] = None,
+    ) -> Union[torch.Tensor, List[torch.Tensor], Tuple[torch.Tensor, Dict[str, list]]]:
+        """Logits, or with ``capture`` ``(logits, {"encoder_features": per
+        modality the channels-last features of every level, "fused_features":
+        the channels-last fused features of every level})`` (``outs`` for the
+        logits under deep supervision in training). ``perturb`` takes the live
+        fused features ``fused{l}``; ``intermediates`` takes the modality weights of
+        ``attention`` fusion under ``("fusion_attn{l}", "modality_weights")``."""
         if x.shape[-1] != self.num_modalities:
             raise ValueError(f"DualEncoder built for {self.num_modalities} modalities got "
                              f"{tuple(x.shape)}")
@@ -153,7 +173,9 @@ class DualEncoder(nn.Module):
         per_modality = [getattr(self, f"encoder{m}")(cf(x[..., m:m + 1]))
                         for m in range(self.num_modalities)]
         suv = x[..., self.suv_channel:self.suv_channel + 1]
-        fused = [self._fuse(level, [cl(f[level]) for f in per_modality], suv)
+        fused = [perturb_at(perturb, f"fused{level}",
+                            self._fuse(level, [cl(f[level]) for f in per_modality], suv,
+                                       intermediates), channels_first=True)
                  for level in range(len(self.features))]
 
         y, skips = fused[-1], fused[:-1]
@@ -164,10 +186,14 @@ class DualEncoder(nn.Module):
                 aux.append(logits_out(getattr(self, f"ds_head{j}"), y))
         logits = logits_out(self.out_conv, self.dropout(y))
         if aux:
-            return supervised_outputs(logits, aux[::-1])
+            logits = supervised_outputs(logits, aux[::-1])
+        if capture:
+            return logits, {"encoder_features": [[cl(f) for f in feats] for feats in per_modality],
+                            "fused_features": [cl(f) for f in fused]}
         return logits
 
-    def _fuse(self, level: int, feats: List[torch.Tensor], suv: torch.Tensor) -> torch.Tensor:
+    def _fuse(self, level: int, feats: List[torch.Tensor], suv: torch.Tensor,
+              intermediates: Optional[dict] = None) -> torch.Tensor:
         """One level's channels-last features per modality → the fused
         channels-first features."""
         t = self.fusion_type
@@ -176,7 +202,10 @@ class DualEncoder(nn.Module):
         elif t == "add":
             f = sum(feats[1:], feats[0])
         elif t == "attention":
-            f = getattr(self, f"fusion_attn{level}")(feats)
+            sow = None
+            if intermediates is not None:
+                sow = intermediates.setdefault((f"fusion_attn{level}", "modality_weights"), [])
+            f = getattr(self, f"fusion_attn{level}")(feats, sow)
         elif t in ("cross_attention", "bidirectional"):
             others = _mean(feats[1:])
             if not self._attends(feats[0].shape[1:4]):

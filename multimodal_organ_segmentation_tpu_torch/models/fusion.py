@@ -16,7 +16,7 @@ shapes at construction, so each module takes its channel counts. The
 ring-attention branch of ``CrossAttentionFusion`` (sequence parallelism over
 a mesh axis) belongs to the multi-device slice. ``AttentionFusion``'s
 modality weights, which the JAX module sows for the explainability code,
-come with that code.
+go to a ``sow`` list when the caller passes one.
 """
 
 from __future__ import annotations
@@ -97,7 +97,8 @@ class HierarchicalLateFusion(nn.Module):
 class AttentionFusion(nn.Module):
     """SE-style modality weighting: global-average-pool each modality →
     concat → Dense → relu → Dense → softmax over the modalities → the
-    weighted sum of the modalities."""
+    weighted sum of the modalities. ``sow``, a list, takes the weights
+    ``[B, M]`` (flax's ``modality_weights``)."""
 
     def __init__(self, num_modalities: int, channels: int, reduction: int = 4):
         super().__init__()
@@ -105,9 +106,12 @@ class AttentionFusion(nn.Module):
         self.fc1 = Linear(width, max(width // reduction, 1))
         self.fc2 = Linear(max(width // reduction, 1), num_modalities)
 
-    def forward(self, features: List[torch.Tensor]) -> torch.Tensor:
+    def forward(self, features: List[torch.Tensor],
+                sow: Optional[List[torch.Tensor]] = None) -> torch.Tensor:
         pooled = torch.cat([f.mean(dim=(1, 2, 3)) for f in features], dim=-1)  # [B, M*C]
         w = torch.softmax(self.fc2(F.relu(self.fc1(pooled))), dim=-1)  # [B, M]
+        if sow is not None:
+            sow.append(w)
         stacked = torch.stack(features, dim=1)  # [B, M, H, W, D, C]
         return (stacked * w[:, :, None, None, None, None]).sum(dim=1)
 

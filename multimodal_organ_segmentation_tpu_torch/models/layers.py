@@ -70,6 +70,22 @@ def cl(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 2, 3, 4, 1)
 
 
+def perturb_at(points: Optional[dict], name: str, x: torch.Tensor,
+               channels_first: bool = False) -> torch.Tensor:
+    """flax's ``perturb`` in eager PyTorch: record the live activation ``x``
+    under ``name`` in ``points`` (channels-last) and return the tensor the
+    rest of the forward goes on with, so that ``torch.autograd.grad`` of a
+    score with respect to ``points[name]`` is the gradient flax reads from
+    its zero perturbation. A channels-first ``x`` is recorded as its
+    channels-last view and the forward goes on through that view (views, no
+    copy), so the recorded tensor lies on every path to the output."""
+    if points is None:
+        return x
+    p = cl(x) if channels_first else x
+    points[name] = p
+    return cf(p) if channels_first else p
+
+
 def conv_cl(conv: Callable[[torch.Tensor], torch.Tensor], x: torch.Tensor) -> torch.Tensor:
     """Apply a channels-first conv (or norm, or dropout) to a channels-last
     volume (views, no copy)."""

@@ -23,7 +23,14 @@ Differences from the flax module, all forced by eager PyTorch:
 - ``scan_blocks`` (one ``lax.scan`` body per stage) is the same math as
   unrolled blocks, so both build unrolled blocks here; ``convert`` unstacks
   a stacked JAX tree;
-- ``enable_perturb`` and tensor parallelism are not ported yet and raise.
+- tensor parallelism is not ported yet and raises;
+- the explainability hooks are arguments of ``forward`` rather than flax
+  collections: ``capture`` returns the pyramid taps, ``perturb`` (a dict) takes
+  the live activations at the points ``stage0..stage4`` that flax's ``perturb`` names, so that
+  ``torch.autograd.grad`` gives the gradients flax reads from its zero
+  perturbations; ``intermediates`` (a dict) takes every window attention's
+  probabilities under the path flax sows them at. No parameter or buffer is
+  added, so the state dict is the same with or without them.
 
 ``monai_compat`` reproduces MONAI's SwinUNETR graph, as the JAX model's flag
 does, for reference-checkpoint interchange (``models/torch_import.py``,
@@ -37,7 +44,7 @@ gathered ``[H, N, N]`` bias as it is.
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -55,6 +62,7 @@ from multimodal_organ_segmentation_tpu_torch.models.layers import (
     cf,
     conv_cl,
     logits_out,
+    perturb_at,
     supervised_outputs,
 )
 from multimodal_organ_segmentation_tpu_torch.utils.config import (
@@ -155,6 +163,11 @@ class WindowAttention(nn.Module):
     differentiable). Otherwise the module's dense path runs, with the JAX
     package's precision rule: f32 inputs stay f32 throughout; for bf16, the
     scores, bias, mask and softmax are bf16 and the matmuls accumulate in f32.
+
+    ``sow``, a list, takes the probabilities ``[B·nW, heads, N, N]`` (the
+    model dtype) of this call. The kernel never writes them out, so a call
+    given one takes the dense path, as the flax module does when its
+    ``intermediates`` collection is mutable.
     """
 
     def __init__(self, dim: int, num_heads: int, window: Window, attn_drop: float = 0.0,
@@ -183,7 +196,8 @@ class WindowAttention(nn.Module):
         idx = self.rel_index[:n, :n].reshape(-1)
         return self.rel_pos_bias[idx].reshape(n, n, self.num_heads).permute(2, 0, 1).contiguous()
 
-    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                sow: Optional[List[torch.Tensor]] = None) -> torch.Tensor:
         b_, n, c = x.shape
         head_dim = c // self.num_heads
         qkv = self.qkv(x).reshape(b_, n, 3, self.num_heads, head_dim)
@@ -192,7 +206,7 @@ class WindowAttention(nn.Module):
 
         # attention dropout acts on the probabilities, which the kernel never
         # writes out: a module built with it takes the dense path
-        if self.use_kernel and self.attn_drop == 0.0 and takes_custom_op(x):
+        if self.use_kernel and self.attn_drop == 0.0 and sow is None and takes_custom_op(x):
             nw = mask.shape[0] if mask is not None else 1
             out = window_mha(q, k, v, bias, mask, nw)
             return self.proj(out.reshape(b_, n, c).to(x.dtype))
@@ -208,7 +222,10 @@ class WindowAttention(nn.Module):
             nw = mask.shape[0]
             attn = attn.reshape(b_ // nw, nw, self.num_heads, n, n) + mask[None, :, None]
             attn = attn.reshape(b_, self.num_heads, n, n)
-        attn = self.dropout(torch.softmax(attn, dim=-1))
+        attn = torch.softmax(attn, dim=-1)
+        if sow is not None:
+            sow.append(attn)
+        attn = self.dropout(attn)
         out = torch.einsum("bhnm,bmhd->bnhd", attn, v)
         return self.proj(out.reshape(b_, n, c).to(x.dtype))
 
@@ -245,7 +262,7 @@ class SwinBlock(nn.Module):
             persistent=False,
         )
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, sow: Optional[List[torch.Tensor]] = None) -> torch.Tensor:
         b, h, w, d, c = x.shape
         if (h, w, d) != self.grid:
             raise ValueError(f"SwinBlock built for a {self.grid} grid got {(h, w, d)}")
@@ -263,7 +280,7 @@ class SwinBlock(nn.Module):
             y = torch.roll(y, tuple(-s for s in self.shift), dims=(1, 2, 3))
             mask = self.attn_mask
 
-        attended = self.attn(window_partition(y, self.window), mask)
+        attended = self.attn(window_partition(y, self.window), mask, sow)
         y = window_unpartition(attended, self.window, (b, hp, wp, dp))
 
         if any(self.shift):
@@ -377,7 +394,9 @@ class SwinUNETR(nn.Module):
     training mode only. ``dtype`` is the compute dtype: parameters may stay
     f32 (training) and are cast per op. ``monai_compat`` builds MONAI's
     wiring (module docstring): no ``encoder4``, and neither fusion nor deep
-    supervision, which MONAI's graph has no slots for.
+    supervision, which MONAI's graph has no slots for. ``forward``'s
+    ``perturb`` takes the perturbation points ``stage0..stage4`` (each
+    stage's output before its merge, and the bottleneck).
     """
 
     def __init__(
@@ -412,6 +431,7 @@ class SwinUNETR(nn.Module):
         self.feature_size = fs
         self.dtype = dtype
         self.use_remat = use_remat
+        self.window_size = tuple(int(w) for w in window_size)
         self.fusion_stages = tuple(fusion_stages)
         self.xfuse = modality_fusion == "cross_attention" and in_channels >= 2
         dims = [fs, fs * 2, fs * 4, fs * 8]
@@ -459,7 +479,28 @@ class SwinUNETR(nn.Module):
             self.ds_head0 = Conv3d(fs, out_channels, 1)
             self.ds_head1 = Conv3d(fs * 2, out_channels, 1)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    @property
+    def perturb_points(self) -> List[str]:
+        """The names of the perturbation points."""
+        return [f"stage{i}" for i in range(5)]
+
+    def forward(
+        self,
+        x: torch.Tensor,
+        capture: bool = False,
+        perturb: Optional[Dict[str, torch.Tensor]] = None,
+        intermediates: Optional[Dict[Tuple[str, ...], List[torch.Tensor]]] = None,
+    ) -> Union[torch.Tensor, Tuple[torch.Tensor, List[torch.Tensor]]]:
+        """Logits, or with ``capture`` ``(logits, hidden)`` (``(outs,
+        hidden)`` under deep supervision in training), ``hidden`` the
+        channels-last pyramid taps of the JAX model: native, each stage's
+        output before its merge and the bottleneck; ``monai_compat``, the
+        patch embedding and each merge's output. ``perturb`` takes the live
+        activations at ``stage0..stage4`` (before each merge, then the
+        bottleneck: the flax points, also under ``monai_compat``).
+        ``intermediates`` takes each block's attention probabilities under
+        ``("stage{s}_block{b}", "attn", "attn_probs")``; those blocks take
+        the dense path (``WindowAttention``), and kernel B still runs."""
         if tuple(x.shape[1:4]) != self.img_size or x.shape[-1] != self.in_channels:
             raise ValueError(f"SwinUNETR built for [B, {self.img_size}, {self.in_channels}] "
                              f"inputs got {tuple(x.shape)}")
@@ -475,12 +516,18 @@ class SwinUNETR(nn.Module):
         for stage in range(4):
             for bi in range(self.depths[stage]):
                 block = getattr(self, f"stage{stage}_block{bi}")
-                if self.use_remat and self.training and torch.is_grad_enabled():
+                sow = None
+                if intermediates is not None:
+                    sow = intermediates.setdefault((f"stage{stage}_block{bi}", "attn",
+                                                    "attn_probs"), [])
+                if (self.use_remat and self.training and torch.is_grad_enabled()
+                        and sow is None):
                     # remat: keep the block's input only and run its forward
                     # again in the backward pass (``nn.remat`` in flax)
                     y = checkpoint(block, y, use_reentrant=False)
                 else:
-                    y = block(y)
+                    y = block(y, sow)
+            y = perturb_at(perturb, f"stage{stage}", y)
             if not self.monai_compat:
                 hidden.append(y)  # tap pre-merge (native wiring)
             y = getattr(self, f"merge{stage}")(y)
@@ -490,17 +537,17 @@ class SwinUNETR(nn.Module):
                     y = getattr(self, f"xfuse{stage}")(y, aux)
             if self.monai_compat:
                 hidden.append(y)  # MONAI taps post-merge
+        y = perturb_at(perturb, "stage4", y)
         if not self.monai_compat:
             hidden.append(y)  # bottleneck 16fs @ /32
-        else:
-            hidden = [param_free_layer_norm(t) for t in hidden]
+        taps = [param_free_layer_norm(t) for t in hidden] if self.monai_compat else hidden
 
         enc0 = self.encoder0(cf(inp))
-        enc1 = self.encoder1(cf(hidden[0]))
-        enc2 = self.encoder2(cf(hidden[1]))
-        enc3 = self.encoder3(cf(hidden[2]))
-        enc4 = cf(hidden[3]) if self.monai_compat else self.encoder4(cf(hidden[3]))
-        bottleneck = self.encoder10(cf(hidden[4]))
+        enc1 = self.encoder1(cf(taps[0]))
+        enc2 = self.encoder2(cf(taps[1]))
+        enc3 = self.encoder3(cf(taps[2]))
+        enc4 = cf(taps[3]) if self.monai_compat else self.encoder4(cf(taps[3]))
+        bottleneck = self.encoder10(cf(taps[4]))
 
         d4 = self.decoder5(bottleneck, enc4)
         d3 = self.decoder4(d4, enc3)
@@ -509,9 +556,9 @@ class SwinUNETR(nn.Module):
         d0 = self.decoder1(d1, enc0)
         logits = logits_out(self.out_conv, d0)  # f32 logits, as the JAX model's
         if self.deep_supervision and self.training:
-            return supervised_outputs(logits, [logits_out(self.ds_head0, d1),
-                                               logits_out(self.ds_head1, d2)])
-        return logits
+            logits = supervised_outputs(logits, [logits_out(self.ds_head0, d1),
+                                                 logits_out(self.ds_head1, d2)])
+        return (logits, hidden) if capture else logits
 
 
 def set_use_kernels(model: nn.Module, use_kernels: bool) -> None:

@@ -15,7 +15,7 @@ them 1, 1/2, 1/4, ...); in eval only the logits.
 
 from __future__ import annotations
 
-from typing import List, Sequence, Union
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 from torch import nn
@@ -27,7 +27,9 @@ from multimodal_organ_segmentation_tpu_torch.models.layers import (
     Dropout3D,
     UpBlock3D,
     cf,
+    cl,
     logits_out,
+    perturb_at,
     supervised_outputs,
 )
 from multimodal_organ_segmentation_tpu_torch.utils.config import (
@@ -40,7 +42,8 @@ class UNet3D(nn.Module):
     """Standard 3D UNet: ``init_conv``, ``down{i}``, ``up{j}``, an optional
     ``ds_head{j}`` per intermediate decoder stage, dropout, ``out_conv``.
     ``dtype`` is the compute dtype (parameters may stay f32 and are cast
-    per op); the heads compute in f32."""
+    per op); the heads compute in f32. ``forward``'s ``perturb`` takes the
+    perturbation points ``feat{i}`` (each encoder level's output)."""
 
     def __init__(self, in_channels: int = 2, out_channels: int = 8,
                  features: Sequence[int] = (32, 64, 128, 256, 512), norm: str = "instance",
@@ -61,13 +64,31 @@ class UNet3D(nn.Module):
         self.dropout = Dropout3D(dropout)
         self.out_conv = Conv3d(feats[0], out_channels, 1)
 
-    def forward(self, x: torch.Tensor) -> Union[torch.Tensor, List[torch.Tensor]]:
+    @property
+    def perturb_points(self) -> List[str]:
+        """The names of the perturbation points."""
+        return [f"feat{i}" for i in range(len(self.features))]
+
+    def forward(
+        self,
+        x: torch.Tensor,
+        capture: bool = False,
+        perturb: Optional[Dict[str, torch.Tensor]] = None,
+        intermediates: Optional[dict] = None,
+    ) -> Union[torch.Tensor, List[torch.Tensor], Tuple[torch.Tensor, List[torch.Tensor]]]:
+        """Logits, or with ``capture`` ``(logits, hidden)`` (``(outs,
+        hidden)`` under deep supervision in training), ``hidden`` the
+        channels-last encoder features, bottleneck last. ``perturb`` takes the
+        live activations at ``feat0..feat{L-1}``, the same features. The
+        model sows no ``intermediates``: the dict stays empty."""
         levels = len(self.features)
-        x = self.init_conv(cf(x.to(self.dtype)))
+        x = perturb_at(perturb, "feat0", self.init_conv(cf(x.to(self.dtype))), channels_first=True)
         skips = [x]
         for i in range(levels - 1):
             x, _ = getattr(self, f"down{i}")(x)
+            x = perturb_at(perturb, f"feat{i + 1}", x, channels_first=True)
             skips.append(x)
+        hidden = [cl(s) for s in skips] if capture else None
         aux = []
         for j, i in enumerate(range(levels - 1, 0, -1)):
             x = getattr(self, f"up{j}")(x, skips[i - 1])
@@ -75,8 +96,8 @@ class UNet3D(nn.Module):
                 aux.append(logits_out(getattr(self, f"ds_head{j}"), x))
         logits = logits_out(self.out_conv, self.dropout(x))
         if aux:
-            return supervised_outputs(logits, aux[::-1])
-        return logits
+            logits = supervised_outputs(logits, aux[::-1])
+        return (logits, hidden) if capture else logits
 
     @property
     def encoder_channels(self) -> List[int]:

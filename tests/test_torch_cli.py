@@ -36,6 +36,7 @@ import pytest
 import torch
 import yaml
 
+import jax
 import jax.numpy as jnp
 
 from multimodal_organ_segmentation_tpu.data import transforms as jtr
@@ -310,6 +311,135 @@ def test_no_card_and_no_device_flag_raises(world, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         cli.main(["--mode", "inference", "--config", str(world["config"])])
+
+
+def _explain_world(root):
+    """A DualEncoder (attention fusion, which sows its modality weights) with
+    seeded weights as a port checkpoint and as the JAX package's own, three
+    CT+PET cases of other shapes than its 8³ tile, and a config with every
+    tool on, on native grids."""
+    from multimodal_organ_segmentation_tpu.models import build as jbuild
+    from multimodal_organ_segmentation_tpu.train.checkpoint import save_checkpoint as jsave
+    from multimodal_organ_segmentation_tpu.train.optim import make_optimizer
+    from multimodal_organ_segmentation_tpu.train.trainer import TrainState
+
+    cfg = {
+        "experiment": {"name": "explain", "seed": 0, "log_dir": str(root / "logs")},
+        "data": {"modalities": ["CT", "PET"]},
+        "model": {"name": "dual_encoder", "out_channels": 3,
+                  "backbone": {"features": [4, 8, 8], "img_size": [8, 8, 8]},
+                  "fusion": {"type": "attention"}},
+        "inference": {"sliding_window": {"overlap": 0.5}, "batch_size": 2},
+        "explainability": {"native_grid": True, "gradcam": {"enabled": True},
+                           "attention_maps": {"enabled": True},
+                           "tsne": {"enabled": True, "perplexity": 2},
+                           "shap": {"enabled": True, "n_samples": 2}},
+        "training": {"optimizer": {"name": "adamw", "lr": 1e-3}},
+        "hardware": {"mixed_precision": "fp32"},
+    }
+    jcfg = JConfig(cfg)
+    flax_model = jbuild.build_model(jcfg)
+    variables = seeded_variables(flax_model, np.zeros((1, 8, 8, 8, 2), np.float32), train=False,
+                                 seed=12)
+    params = jax.tree_util.tree_map(jnp.asarray, variables["params"])
+    jsave(TrainState(step=jnp.zeros((), jnp.int32), params=params,
+                     opt_state=make_optimizer(jcfg).init(params), extra={}), root / "jckpt")
+    save_checkpoint({"step": 0, "params": convert.params_from_jax("dual_encoder", variables),
+                     "opt_state": None, "ema_params": None}, root / "ckpt")
+    rng = np.random.default_rng(13)
+    for case, shape in {"c1": (12, 10, 8), "c2": (8, 8, 8), "c3": (12, 10, 8)}.items():
+        for mod in ("ct", "pet"):
+            save_nifti(rng.normal(size=shape).astype(np.float32),
+                       root / "input" / mod / f"{case}.nii.gz", affine=AFFINE)
+    path = root / "explain.yaml"
+    path.write_text(yaml.safe_dump(cfg))
+    return path
+
+
+def _files(root):
+    return sorted(str(p.relative_to(root)) for p in Path(root).rglob("*"))
+
+
+def test_explain_mode_matches_the_jax_cli(tmp_path):
+    """``--mode explain`` writes the JAX CLI's file set; the native GradCAM
+    maps within 1e-5 of the JAX CLI's and the native IG maps within 1e-4
+    relative (the tolerances of tests/test_torch_explainability.py)."""
+    from multimodal_organ_segmentation_tpu import cli as jcli
+
+    config = _explain_world(tmp_path)
+    jcli.main(["--mode", "explain", "--config", str(config), "--checkpoint",
+               str(tmp_path / "jckpt"), "--input", str(tmp_path / "input"), "--output",
+               str(tmp_path / "jax"), "--device", "cpu"])
+    _run(config, "explain", "--checkpoint", str(tmp_path / "ckpt"), "--input",
+         str(tmp_path / "input"), "--output", str(tmp_path / "port"))
+    files = _files(tmp_path / "port")
+    assert files == _files(tmp_path / "jax")
+    assert "tsne.png" in files and "c1_attention" in files
+    maps = [f for f in files if f.endswith(".nii.gz")]
+    assert len(maps) == 9  # per case: GradCAM on fused2, IG of CT and of PET
+    for name in maps:
+        got, want = load_nifti(tmp_path / "port" / name), load_nifti(tmp_path / "jax" / name)
+        assert got.shape == want.shape, name
+        if "gradcam" in name:
+            np.testing.assert_allclose(got, want, atol=1e-5, err_msg=name)
+        else:
+            assert np.abs(got - want).max() <= 1e-4 * np.abs(want).max(), name
+    for name in files:
+        if name.endswith(".png"):
+            assert (tmp_path / "port" / name).stat().st_size > 1000, name
+
+
+def _analysis_case(root):
+    rng = np.random.default_rng(14)
+    shape = (20, 18, 16)
+    suv = rng.uniform(0.2, 0.8, shape).astype(np.float32)
+    seg = np.zeros(shape, np.uint8)
+    seg[2:8, 2:8, 2:8] = 5
+    suv[2:8, 2:8, 2:8] = rng.normal(2.0, 0.2, (6, 6, 6))
+    seg[10:14, 10:14, 2:6] = 2
+    suv[12:18, 12:17, 9:14] = rng.normal(5.0, 0.5, (6, 5, 5))
+    save_nifti(suv, root / "case" / "pet_suv.nii.gz", affine=AFFINE)
+    save_nifti(seg, root / "case" / "case_pred.nii.gz", affine=AFFINE)
+    return root / "case"
+
+
+def test_analysis_mode_matches_the_jax_cli(world, tmp_path):
+    """``--mode analysis --generate-report``: the JAX CLI's file set, its CSV
+    columns, numbers within 1e-6 relative, the masks exactly."""
+    from multimodal_organ_segmentation_tpu import cli as jcli
+
+    case = _analysis_case(tmp_path)
+    argv = ["--mode", "analysis", "--config", str(world["config"]), "--input", str(case),
+            "--suv-analysis", "--tmtv-analysis", "--histogram", "--generate-report",
+            "--device", "cpu"]
+    jcli.main([*argv, "--output", str(tmp_path / "jax")])
+    cli.main([*argv, "--output", str(tmp_path / "port")])
+    files = _files(tmp_path / "port")
+    assert files == _files(tmp_path / "jax")
+    assert {"suv_analysis.csv", "tmtv_analysis.xlsx", "report.docx",
+            "organ_histograms.png"} <= set(files)
+    for name in files:
+        got, want = tmp_path / "port" / name, tmp_path / "jax" / name
+        if name.endswith(".csv"):
+            with open(got) as f, open(want) as g:
+                rows, ref = list(csv.reader(f)), list(csv.reader(g))
+            assert rows[0] == ref[0] and len(rows) == len(ref), name
+            for r, o in zip(ref[1:], rows[1:]):
+                for a, b in zip(r, o):
+                    try:
+                        assert float(b) == pytest.approx(float(a), rel=1e-6), name
+                    except ValueError:
+                        assert a == b, name
+        elif name.endswith(".nii.gz"):
+            np.testing.assert_array_equal(load_nifti(got), load_nifti(want), err_msg=name)
+
+
+@pytest.mark.parametrize("mode", ["explain", "analysis"])
+def test_explain_and_analysis_without_a_card_raise(world, monkeypatch, mode):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli.main(["--mode", mode, "--config", str(world["config"]), "--checkpoint", "c",
+                  "--input", "i"])
 
 
 def test_discover_cases_and_explicit_case_shard(world, tmp_path):

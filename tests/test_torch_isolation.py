@@ -42,7 +42,11 @@ def test_port_and_chip_smoke_import_no_jax():
                 "ops.sliding_window", "data.transforms", "cli", "__main__", "models.unet3d",
                 "models.attention_unet", "models.heads", "models.dual_encoder", "serving",
                 "serving.server", "serving.tuner", "models.program_export",
-                "models.torch_import", "models.torch_export", "utils.tensorboard"):
+                "models.torch_import", "models.torch_export", "utils.tensorboard",
+                "explainability", "explainability.gradcam", "explainability.attention",
+                "explainability.shap_analysis", "explainability.tsne", "explainability.runner",
+                "analysis", "analysis.suv", "analysis.tmtv", "analysis.histogram",
+                "analysis.report", "utils.xlsx", "utils.visualization"):
         assert f"{pkg}.{new}" in mods, new
     code = (
         "import importlib, json, sys\n"
@@ -55,6 +59,21 @@ def test_port_and_chip_smoke_import_no_jax():
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
+
+
+def test_port_imports_without_the_host_renderers():
+    """Every module of the port imports where matplotlib, sklearn and pandas
+    are absent (the card's machine has no matplotlib or sklearn): the figures
+    import them when they draw, and the tables need no pandas."""
+    code = (
+        "import importlib, sys\n"
+        "for m in ('matplotlib', 'sklearn', 'pandas'): sys.modules[m] = None\n"
+        f"for m in {_port_modules()!r}: importlib.import_module(m)\n"
+        "print('ok')\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr
 
 
 FOREIGN_IMPORT = re.compile(

@@ -224,21 +224,35 @@ def test_scan_tree_converts_to_the_unrolled_state():
         assert torch.equal(a[key], b[key]), key
 
 
-def test_unported_options_raise():
-    """The perturb points and tensor parallelism raise; monai_compat builds
+def test_unported_options_raise(tmp_path):
+    """Tensor parallelism raises; monai_compat builds
     (``test_torch_reference_checkpoint.py``) but, as the JAX ``build_swin_unetr``,
     refuses this flagship's cross-attention fusion; deep supervision builds
     (``test_deep_supervision_matches_flax``), and so does every other model
-    of the registry: only an unknown name raises."""
+    of the registry: only an unknown name raises. ``model.enable_perturb``
+    builds and is ignored: the same points, the state dict has the same keys
+    as without it, and a checkpoint written from a model without it loads."""
+    from multimodal_organ_segmentation_tpu_torch.train.checkpoint import (
+        load_checkpoint,
+        save_checkpoint,
+    )
+
     for key, value in (("monai_compat", True),):
         cfg = _model_config()
         cfg["model"]["backbone"][key] = value
         with pytest.raises(ValueError, match="cross_attention"):
             build_model(cfg, device="cpu")
     cfg = _model_config()
+    plain = build_model(cfg, device="cpu", generator=torch.Generator().manual_seed(3))
+    save_checkpoint({"step": 0, "params": plain.state_dict(), "opt_state": None,
+                     "ema_params": None}, tmp_path / "ckpt")
     cfg["model"]["enable_perturb"] = True
-    with pytest.raises(NotImplementedError, match="explainability"):
-        build_model(cfg, device="cpu")
+    model = build_model(cfg, device="cpu")
+    assert model.perturb_points == plain.perturb_points == [f"stage{i}" for i in range(5)]
+    assert list(model.state_dict()) == list(plain.state_dict())
+    model.load_state_dict(load_checkpoint(tmp_path / "ckpt")["tree"]["params"])
+    for key, value in plain.state_dict().items():
+        assert torch.equal(model.state_dict()[key], value), key
     cfg = _model_config()
     cfg["parallel"] = {"mesh": {"data": 1, "model": 2}}
     with pytest.raises(NotImplementedError, match="multi-device"):
