@@ -100,7 +100,24 @@ Phases (any failure exits non-zero; no phase's error is caught):
 13. analysis — ``--mode analysis --generate-report`` through ``cli.main`` on
    the [cli] phase's mask of the 192×192×256 case and a synthetic SUV volume
    on its grid: SUV, TMTV and TLG numbers against the same functions on CPU
-   tensors, the masks equal, the CSV and XLSX columns the JAX tables'.
+   tensors, the masks equal, the CSV and XLSX columns the JAX tables';
+14. preprocess — a PET/CT DICOM study written from the seed with the port's
+   writer at a scanner's sizes (CT 512×512×280 of 0.9766×0.9766×2.5 mm,
+   int16 with a rescale intercept; PET 192×192×214 of 4.0728×4.0728×3.27 mm
+   with the SUV tags, its anatomy the CT's moved a few mm under another
+   intensity map), then ``cli.main --mode preprocess`` on ``configs/default.yaml``
+   (target spacing 1.5×1.5×2.0 mm, translation + Mattes MI): the CT's NIfTI
+   before the resample equal to the stored pixels × slope + intercept, the
+   resampled grids (333×333×350, 521×521×350) and affines equal to the
+   formula, every SUV volume to ``suv_factor`` × PET within 1e-6, MI's
+   translation within 0.6 voxel of the planted shift as the resampled grids
+   carry it, ``pet_registered.nii.gz`` and the JAX transform JSON written,
+   a label map carried through the transform (nearest, uint8) with its label
+   set kept; wall s a stage, s an iteration a level, the peak memory. Then
+   ``register_arrays`` at the full 333×333×350 grid for rigid, affine and
+   deformable against planted transforms, held to the JAX TRE gates, and
+   one ``register_arrays`` a method at 48³ on the card against the same on
+   CPU tensors (final parameters within 1e-3 voxel).
 
 The line before the last holds one JSON object ``{"kernels": [...]}``;
 the last line is ``{"ok": true, "device": {...}}``. Without a CUDA device
@@ -109,6 +126,7 @@ the script exits with code 2 and prints no result.
 
 from __future__ import annotations
 
+import ast
 import json
 import math
 import re
@@ -2376,6 +2394,405 @@ def phase_analysis(case: Path, device: str = "cuda") -> None:
     shutil.rmtree(case.parent)
 
 
+# The [preprocess] study: a PET/CT series pair at a scanner's sizes, written
+# with the port's DICOM writer from the seed. CT: 512×512 pixels of 0.9766 mm,
+# 280 slices of 2.5 mm, int16 with a rescale intercept; PET: 192×192 of
+# 4.0728 mm, 214 slices of 3.27 mm, uint16 with a rescale slope and the tags
+# SUV reads. The PET's anatomy is the CT's moved by PREP_SHIFT_MM, under
+# another intensity map, so only mutual information can find it.
+PREP_CT = ((512, 512, 280), (0.9766, 0.9766, 2.5))
+PREP_PET = ((192, 192, 214), (4.0728, 4.0728, 3.27))
+PREP_SHIFT_MM = (4.2, -3.3, 5.0)
+PREP_CONFIG = "configs/default.yaml"  # target spacing 1.5×1.5×2.0 mm, translation + MI
+PET_SLOPE = 1.25
+PET_TAGS = {"PatientWeight": 75.0, "PatientSize": 1.75, "AcquisitionTime": "093000",
+            "SeriesTime": "093000"}
+PET_DOSE = {"RadionuclideTotalDose": 3.7e8, "RadionuclideHalfLife": 6586.2,
+            "RadiopharmaceuticalStartTime": "083000"}
+# (centre mm, semi-axes mm, CT HU, PET Bq/ml), painted in order over air
+# (-1000 HU, 0 Bq/ml); the label of each is its index + 1
+ANATOMY = (
+    ((0, 0, 0), (165, 115, 330), 40, 2500),  # body
+    ((-70, -10, 120), (55, 60, 110), -820, 600),  # lungs
+    ((70, -10, 120), (55, 60, 110), -820, 600),
+    ((15, 20, 90), (45, 40, 45), 45, 6000),  # heart
+    ((-55, 10, -20), (70, 55, 65), 60, 7500),  # liver
+    ((70, 10, -10), (30, 35, 45), 50, 5500),  # spleen
+    ((-65, 50, -90), (25, 25, 45), 35, 9000),  # kidneys
+    ((65, 50, -90), (25, 25, 45), 35, 9000),
+    ((0, 20, -270), (35, 30, 30), 10, 30000),  # bladder
+    ((0, 85, 0), (15, 15, 320), 700, 1500),  # spine
+    ((0, 0, 290), (70, 85, 45), 35, 15000),  # brain
+    ((-30, -40, 40), (9, 9, 9), 30, 20000),  # lesions
+    ((40, 30, -150), (6, 6, 6), 30, 25000),
+)
+# register_arrays at the resampled CT's full grid, each method against a
+# planted transform (mean squares), held to the JAX package's TRE gates
+# (tests/test_registration_tre.py:129-149): absolute voxels, or a share of
+# the initial TRE for the deformable
+PREP_RECOVER = {"rigid": (0.5, None), "affine": (0.7, None), "deformable": (None, 0.4)}
+PREP_RECOVER_ITERS = 100
+# card against CPU: one register_arrays a method at 48³, 20 iterations, the
+# default pyramid; MI's trajectories are chaotic across levels (its f32
+# gradient moves by 3e-5 relative with the order of summation, and Adam
+# amplifies that), so MI is held on one level at lr 0.1
+PREP_PAIR_CASES = (("translation", "correlation", {}), ("rigid", "correlation", {}),
+                   ("affine", "mean_squares", {}), ("deformable", "mean_squares", {}),
+                   ("translation", "mattes_mutual_information",
+                    {"shrink_factors": [1], "smoothing_sigmas": [0], "lr": 0.1}))
+PREP_PAIR_SHAPE, PREP_PAIR_ITERS = (48, 48, 48), 20
+PREP_PAIR_TOL = 1e-3  # voxels, final parameters, card against CPU
+
+
+def study_origin(shape, spacing) -> list:
+    """Patient position of voxel 0, centring the volume on the origin;
+    two decimals, so that the DICOM writer's six significant digits keep it."""
+    return [round(-(n - 1) / 2 * s, 2) for n, s in zip(shape, spacing)]
+
+
+EDGE_MM = (0.5, 3.0)  # CT's and PET's edge widths: the scanners' resolutions, roughly
+
+
+def anatomy(shape, spacing, shift_mm, column: int, gen, device: str):
+    """The phantom on a grid as a float32 tensor, with the anatomy moved by
+    ``shift_mm``: CT HU (column 0; 12 HU of noise inside the body), PET Bq/ml
+    (column 1) or labels (column 2). Images blend each organ in over a
+    logistic edge of ``EDGE_MM`` (an edge sampled sharp at the PET's 3.27 mm
+    slices would move MI's optimum by its aliasing); labels are sharp. The
+    PET has no noise: linear interpolation at a fractional shift averages
+    the moving image's noise away, which raises MI there (MI's interpolation
+    artifact), and 10% noise moved the optimum 0.4 voxel off a zero shift."""
+    import torch
+
+    axes = []
+    for a, (n, s, o, d) in enumerate(zip(shape, spacing, study_origin(shape, spacing), shift_mm)):
+        v = o + torch.arange(n, dtype=torch.float64, device=device) * s - d
+        axes.append(v.reshape([-1 if b == a else 1 for b in range(3)]))
+    empty = (-1000.0, 0.0, 0.0)[column]
+    vol = torch.full(tuple(shape), empty, dtype=torch.float32, device=device)
+    body = torch.zeros(tuple(shape), dtype=torch.bool, device=device)
+    for label, (center, semi, *values) in enumerate(ANATOMY, start=1):
+        rho = torch.sqrt(sum(((x - c) / r) ** 2 for x, c, r in zip(axes, center, semi)))
+        value = float((*values, label)[column])
+        if column == 2:
+            vol[rho <= 1] = value
+            continue
+        # signed distance to the surface, roughly, in mm (positive inside)
+        inside = torch.sigmoid((1 - rho) * min(semi) / EDGE_MM[column]).float()
+        vol += (value - vol) * inside
+        body |= rho <= 1
+    if column == 2:
+        return vol
+    if column == 1:
+        return vol
+    return vol + 12.0 * torch.randn(tuple(shape), generator=gen, device=device) * body
+
+
+def write_study(root: Path, ct=PREP_CT, pet=PREP_PET, shift_mm=PREP_SHIFT_MM, seed: int = 42,
+                device: str = "cuda") -> np.ndarray:
+    """``root/CT`` and ``root/PET`` DICOM series of the phantom; returns the
+    CT's stored int16 pixels ``[rows, cols, slices]``."""
+    import torch
+
+    from multimodal_organ_segmentation_tpu_torch.preprocessing.dicom import dcmwrite
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    patient = {"PatientID": "SMOKE01", "PatientName": "Smoke^Study", "PatientSex": "M",
+               "StudyDate": "20260101", "ImageOrientationPatient": [1, 0, 0, 0, 1, 0],
+               "SamplesPerPixel": 1, "BitsAllocated": 16}
+    ct_stored = torch.round(anatomy(*ct, (0, 0, 0), 0, gen, device) + 1024).to(torch.int16)
+    pet_stored = torch.round(anatomy(*pet, shift_mm, 1, gen, device) / PET_SLOPE).clamp(0, 65535)
+    series = (
+        ("CT", ct, ct_stored.cpu().numpy(),
+         {"Modality": "CT", "RescaleSlope": 1.0, "RescaleIntercept": -1024.0,
+          "PixelRepresentation": 1}),
+        ("PET", pet, pet_stored.to(torch.int32).cpu().numpy().astype(np.uint16),
+         {"Modality": "PT", "RescaleSlope": PET_SLOPE, "RescaleIntercept": 0.0,
+          "PixelRepresentation": 0, **PET_TAGS,
+          "RadiopharmaceuticalInformationSequence": [PET_DOSE]}),
+    )
+    for mod, (shape, spacing), pixels, tags in series:
+        origin = study_origin(shape, spacing)
+        for k in range(shape[2]):
+            dcmwrite(root / mod / f"{mod.lower()}_{k:04d}.dcm",
+                     {**patient, **tags, "InstanceNumber": k + 1, "Rows": shape[0],
+                      "Columns": shape[1], "PixelSpacing": list(spacing[:2]),
+                      "SliceThickness": spacing[2],
+                      "ImagePositionPatient": [origin[0], origin[1], origin[2] + k * spacing[2]]},
+                     pixels[:, :, k])
+    return series[0][2]
+
+
+def carried_shift(ct, pet, target, shift_mm) -> np.ndarray:
+    """The planted shift as the resampled grids carry it, at the fixed grid's
+    centre, in fixed voxels. The spacing resample keeps scipy zoom's corner
+    mapping (``in - 1`` input steps over ``out - 1`` output steps) and writes
+    the target spacing into the affine, so a resampled voxel's true spacing
+    is ``(n - 1)·s / (m - 1)``, not the target: registration through the
+    affines then sees the planted shift plus the two grids' scale errors."""
+    out = []
+    for a, t in enumerate(target):
+        (n_c, s_c), (n_p, s_p) = ((v[0][a], v[1][a]) for v in (ct, pet))
+        m_c, m_p = (max(1, int(round(n * s / t))) for n, s in ((n_c, s_c), (n_p, s_p)))
+        r_c = (n_c - 1) * s_c / (m_c - 1)
+        r_p = (n_p - 1) * s_p / (m_p - 1)
+        o_c, o_p = study_origin([n_c], [s_c])[0], study_origin([n_p], [s_p])[0]
+        i = (m_c - 1) / 2
+        # fixed voxel i lies at o_c + i·r_c; its PET partner at o_c + (i + t)·t_a
+        # in the affines, at o_p + j·r_p truly, with j = (o_c - o_p + (i + t)·t_a) / t_a
+        out.append((o_c - o_p + i * r_c + shift_mm[a]) / r_p - (o_c - o_p) / t - i)
+    return np.asarray(out)
+
+
+def tre_phantom(shape=(48, 48, 48), seed=0) -> np.ndarray:
+    """The JAX package's registration phantom (tests/test_registration_tre.py)."""
+    rng = np.random.default_rng(seed)
+    coords = np.stack(np.meshgrid(*[np.arange(s, dtype=np.float32) for s in shape], indexing="ij"))
+    vol = 0.1 * coords[0] / shape[0] + 0.15 * coords[1] / shape[1]
+    for _ in range(12):
+        c = rng.uniform(8, np.asarray(shape) - 8)
+        s = rng.uniform(2.5, 6.0)
+        a = rng.uniform(0.5, 1.5)
+        d2 = ((coords - c[:, None, None, None]) ** 2).sum(0)
+        vol = vol + a * np.exp(-d2 / (2 * s * s))
+    return vol.astype(np.float32)
+
+
+def planted_params(method: str, shape, device) -> dict:
+    """A planted misalignment of 2 to 4 voxels at the landmarks of a grid of
+    ``shape``: the JAX TRE test's at 48³, rotations and affine terms scaled
+    down with the grid's half-width."""
+    import torch
+
+    from multimodal_organ_segmentation_tpu_torch.preprocessing.registration import init_params
+
+    lever = min(shape) / 48
+    p = init_params(method, device=device)
+    tensor = lambda a: torch.tensor(a, dtype=torch.float32, device=device)  # noqa: E731
+    if method == "translation":
+        p["t"] = tensor([3.2, -2.4, 1.7])
+    elif method == "rigid":
+        p["t"], p["r"] = tensor([2.1, -1.4, 0.8]), tensor([0.06, -0.04, 0.08]) / lever
+    elif method == "affine":
+        p["t"] = tensor([1.6, -1.1, 0.9])
+        p["A"] = tensor([[0.04, 0.02, 0.0], [-0.01, -0.03, 0.015], [0.0, 0.01, 0.05]]) / lever
+    elif method == "deformable":
+        g = p["grid"].shape[0]
+        gx = np.linspace(0, np.pi, g)
+        field = np.zeros((g, g, g, 3), np.float32)
+        field[..., 0] = 3.0 * np.sin(gx)[:, None, None] * np.cos(gx)[None, :, None]
+        field[..., 1] = -2.4 * np.cos(gx)[:, None, None] * np.sin(gx)[None, None, :]
+        field[..., 2] = 2.0 * np.sin(gx)[None, :, None] * np.sin(gx)[None, None, :]
+        p["grid"] = tensor(field)
+    return p
+
+
+def planted_tre(method: str, moving, true_p: dict, reg, seed: int = 1, mask=None) -> tuple:
+    """Warp ``moving`` (a tensor) by ``true_p``, register it back with
+    ``reg``; returns the initial and the recovered TRE in voxels over 24
+    landmarks, as the JAX TRE test measures them, and the transform. The
+    landmarks are drawn at least 10 voxels inside the grid and, given a
+    ``mask``, where it holds (in the anatomy: air carries no signal)."""
+    import torch
+
+    from multimodal_organ_segmentation_tpu_torch.preprocessing import registration as R
+
+    shape = tuple(moving.shape)
+    dev = moving.device
+    center = torch.tensor([(s - 1) / 2 for s in shape], device=dev)
+
+    def coord_map(p):
+        with torch.no_grad():
+            return R.transform_coords(p, R._identity_coords(shape, dev), method, center, shape)
+
+    true_map = coord_map(true_p)
+    with torch.no_grad():
+        fixed = R._sample(moving, true_map)
+    _, transform = reg.register_arrays(fixed, moving, method=method)
+    rec_p = {k: torch.tensor(v, dtype=torch.float32, device=dev)
+             for k, v in transform["params"].items()}
+    rec_map = coord_map(rec_p)
+    rng, lms = np.random.default_rng(seed), []
+    while len(lms) < 24:
+        p = rng.integers(10, np.asarray(shape) - 10)
+        if mask is None or mask[tuple(p)]:
+            lms.append(p)
+    lms = np.stack(lms)
+    idx = tuple(torch.from_numpy(lms[:, a]).to(dev) for a in range(3))
+    true_pts = true_map[:, idx[0], idx[1], idx[2]].cpu().numpy()
+    rec_pts = rec_map[:, idx[0], idx[1], idx[2]].cpu().numpy()
+    initial = float(np.linalg.norm(true_pts - lms.T, axis=0).mean())
+    recovered = float(np.linalg.norm(true_pts - rec_pts, axis=0).mean())
+    return initial, recovered, transform
+
+
+def phase_preprocess(device: str = "cuda", ct=PREP_CT, pet=PREP_PET, shift_mm=PREP_SHIFT_MM,
+                     spacing=None, root: Path = Path("outputs")) -> None:
+    """``cli.main --mode preprocess`` on the study (convert, resample, SUV,
+    register), with every output checked; then rigid, affine and deformable
+    recovery at the resampled CT's full grid, and one ``register_arrays`` a
+    method on the card against the same on CPU tensors. (``device="cpu"``
+    with a coarser study and ``spacing`` rehearses the phase on the CPU.)"""
+    import torch
+
+    from multimodal_organ_segmentation_tpu_torch.preprocessing import (
+        DicomConverter,
+        ImageRegistration,
+    )
+    from multimodal_organ_segmentation_tpu_torch.preprocessing.suv_calculator import (
+        decay_factor,
+        suv_factor,
+    )
+    from multimodal_organ_segmentation_tpu_torch.utils.config import ConfigNode, load_config
+    from multimodal_organ_segmentation_tpu_torch.utils.io import load_json, load_nifti, save_nifti
+
+    root.mkdir(parents=True, exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_preprocess_", dir=root)).resolve()
+    study, out, logs = work / "study", work / "processed", work / "logs"
+    t0 = time.perf_counter()
+    ct_stored = write_study(study, ct, pet, shift_mm, device=device)
+    log(f"[preprocess] study written in {time.perf_counter() - t0:.2f} s: CT {ct[0]} of "
+        f"{ct[1]} mm, PET {pet[0]} of {pet[1]} mm, the PET's anatomy moved {shift_mm} mm")
+
+    # the CT's NIfTI before the resample: the stored pixels × slope + intercept
+    raw = load_nifti(DicomConverter().convert(study / "CT", work / "raw", "CT"))
+    want = ct_stored.astype(np.float32) * 1.0 + -1024.0
+    ct_exact = raw.shape == want.shape and np.array_equal(raw, want)
+    del raw, want
+
+    config = load_config(PREP_CONFIG)
+    target = list(spacing or config.get("data.preprocessing.ct.target_spacing"))
+    sets = [f"experiment.log_dir={logs}"]
+    if spacing:
+        sets += [f"data.preprocessing.{m}.target_spacing={target}" for m in ("ct", "pet")]
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    wall = _cli(["--mode", "preprocess", "--config", PREP_CONFIG, "--input", str(study),
+                 "--output", str(out), *[a for kv in sets for a in ("--set", kv)]], device)
+    peak = torch.cuda.max_memory_allocated() / 2**30 if device == "cuda" else float("nan")
+    messages = [line.split(" | ")[-1]
+                for line in _log_lines(next(logs.rglob("preprocess.log")), 0)]
+    stages = [m.split("; ")[0] for m in messages
+              if re.match(r"(\w+: (convert|resample|suv)|register) [\d.]+ s", m)]
+    pyramid = ast.literal_eval(next(m for m in messages if m.startswith("register ")).split(
+        "pyramid ")[1])
+    per_iter = {lv["shape"]: round(lv["seconds"] / max(lv["iterations"], 1), 5) for lv in pyramid}
+
+    # grids and affines against the formula
+    grids, bad = {}, []
+    for mod, (shape, sp) in (("CT", ct), ("PET", pet)):
+        vol, aff = load_nifti(out / mod / f"{mod.lower()}.nii.gz", return_affine=True)
+        want_shape = tuple(max(1, int(round(n * s / t))) for n, s, t in zip(shape, sp, target))
+        want_aff = np.diag([*target, 1.0])
+        want_aff[:3, 3] = study_origin(shape, sp)
+        grids[mod] = vol.shape
+        if vol.shape != want_shape or not np.allclose(aff, want_aff, rtol=0, atol=1e-4):
+            bad.append(f"{mod} {vol.shape} {aff.tolist()}, want {want_shape} {want_aff.tolist()}")
+    del vol
+
+    # every SUV volume: suv_factor × the resampled PET
+    pet_vol = load_nifti(out / "PET" / "pet.nii.gz")
+    dose = PET_DOSE["RadionuclideTotalDose"] * decay_factor(
+        PET_DOSE["RadiopharmaceuticalStartTime"], PET_TAGS["AcquisitionTime"],
+        PET_DOSE["RadionuclideHalfLife"])
+    suv_err = {}
+    for method in config.get("analysis.suv.methods"):
+        ref = pet_vol * suv_factor(method, dose, PET_TAGS["PatientWeight"],
+                                   PET_TAGS["PatientSize"], "M")
+        got = load_nifti(out / "PET" / f"pet_suv_{method}.nii.gz")
+        suv_err[method] = float(np.abs(got - ref).max() / np.abs(ref).max())
+    del pet_vol, ref, got
+
+    # the planted translation, in voxels of the fixed grid
+    transform = load_json(out / "PET" / "pet_transform.json")
+    t = np.asarray(transform["params"]["t"])
+    planted_t = np.asarray(shift_mm) / np.asarray(target)
+    want_t = carried_shift(ct, pet, target, shift_mm)
+    tre = float(np.linalg.norm(t - want_t))
+    registered = load_nifti(out / "PET" / "pet_registered.nii.gz").shape
+
+    # a label map carried through the transform: nearest keeps its labels
+    gen = torch.Generator(device=device).manual_seed(0)
+    pet_shape = grids["PET"]
+    labels = anatomy(pet_shape, target, shift_mm, 2, gen, device).to(torch.uint8).cpu().numpy()
+    pet_aff = np.diag([*target, 1.0])
+    pet_aff[:3, 3] = study_origin(*pet)
+    save_nifti(labels, work / "labels.nii.gz", affine=pet_aff)
+    reg = ImageRegistration(config, device)
+    reg.apply_transform(work / "labels.nii.gz", out / "PET" / "pet_transform.json",
+                        work / "labels_ct.nii.gz", reference_path=out / "CT" / "ct.nii.gz",
+                        interpolation="nearest", dtype=np.uint8)
+    warped = load_nifti(work / "labels_ct.nii.gz", dtype=np.uint8)
+    label_sets = sorted(np.unique(labels).tolist()), sorted(np.unique(warped).tolist())
+    del labels, warped
+
+    log(f"[preprocess] --mode preprocess in {wall:.2f} s of wall time, peak device memory "
+        f"{peak:.2f} GiB; stages: {stages}; s per registration iteration by level {per_iter}")
+    log(f"[preprocess] CT NIfTI = stored pixels x slope + intercept: {ct_exact}; grids {grids} "
+        f"(bad: {bad}); SUV max relative |diff| from suv_factor x PET {suv_err} (tol 1e-6)")
+    log(f"[preprocess] translation {t.tolist()}: TRE {tre:.4f} voxel (gate 0.6) against the "
+        f"planted shift as the resampled grids carry it at the centre {want_t.tolist()}, "
+        f"{float(np.linalg.norm(t - planted_t)):.4f} against the shift as planted "
+        f"{planted_t.tolist()}; pet_registered {registered}, transform keys {sorted(transform)}, "
+        f"final metric {transform['final_metric']:.6f}; labels {label_sets[0]} -> "
+        f"{label_sets[1]} (nearest, uint8)")
+    if not ct_exact or bad or max(suv_err.values()) > 1e-6 or tre >= 0.6 \
+            or registered != grids["CT"] or label_sets[0] != label_sets[1] \
+            or sorted(transform) != ["final_metric", "method", "metric", "params"]:
+        raise SystemExit("[preprocess] a preprocess output is wrong")
+
+    # rigid, affine, deformable at the full grid against planted transforms
+    ct_vol = load_nifti(out / "CT" / "ct.nii.gz")
+    body = ct_vol > -900
+    moving = torch.from_numpy(ct_vol).to(device)
+    del ct_vol
+    failed = []
+    for method, (gate_abs, gate_share) in PREP_RECOVER.items():
+        reg = ImageRegistration(ConfigNode({"data": {"registration": {
+            "method": method, "metric": "mean_squares", "iterations": PREP_RECOVER_ITERS,
+            "lr": 0.5}}}), device)
+        if device == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        initial, rec, _ = planted_tre(method, moving, planted_params(method, moving.shape, device),
+                                      reg, mask=body)
+        seconds = time.perf_counter() - t1
+        gate = gate_abs if gate_abs is not None else gate_share * initial
+        peak = torch.cuda.max_memory_allocated() / 2**30 if device == "cuda" else float("nan")
+        per_iter = [round(lv["seconds"] / max(lv["iterations"], 1), 5) for lv in reg.levels]
+        log(f"[preprocess] {method} at {tuple(moving.shape)}, {PREP_RECOVER_ITERS} iterations a "
+            f"level: TRE {initial:.3f} -> {rec:.4f} voxel (gate {gate:.3f}) in {seconds:.2f} s; "
+            f"s per iteration by level {per_iter} at {[lv['shape'] for lv in reg.levels]}; peak "
+            f"{peak:.2f} GiB")
+        if not rec < gate:
+            failed.append(method)
+    del moving, body
+    if failed:
+        raise SystemExit(f"[preprocess] {failed} missed the TRE gate at the full grid")
+
+    # the card against CPU tensors, the same port function
+    phantom = tre_phantom(PREP_PAIR_SHAPE)
+    worst = 0.0
+    for method, metric, extra in PREP_PAIR_CASES:
+        cfg = ConfigNode({"data": {"registration": {
+            "method": method, "metric": metric, "iterations": PREP_PAIR_ITERS, **extra}}})
+        params, tres = {}, {}
+        for dev in (device, "cpu"):
+            *tres[dev], transform = planted_tre(
+                method, torch.from_numpy(phantom).to(dev),
+                planted_params(method, PREP_PAIR_SHAPE, dev), ImageRegistration(cfg, dev))
+            params[dev] = {k: np.asarray(v) for k, v in transform["params"].items()}
+        err = max(float(np.abs(params[device][k] - params["cpu"][k]).max()) for k in params["cpu"])
+        worst = max(worst, err)
+        log(f"[preprocess] {method} / {metric} at {PREP_PAIR_SHAPE}, {PREP_PAIR_ITERS} "
+            f"iterations: TRE {tres[device][0]:.3f} -> {tres[device][1]:.4f} ({device}), "
+            f"{tres['cpu'][1]:.4f} (cpu); final parameters max |diff| {err:.3e} voxel (tol "
+            f"{PREP_PAIR_TOL})")
+    if worst > PREP_PAIR_TOL:
+        raise SystemExit("[preprocess] the card's registration differs from the CPU's")
+    shutil.rmtree(work)
+
+
 def phase_models() -> dict:
     """The other model families on the card: the 128³ DualEncoder tile check,
     serving every configuration of ``MODEL_KEYS``, the DualEncoder's training and its
@@ -2440,6 +2857,8 @@ def main(argv) -> int:
     by_path["explain"] = phase_explain()
     torch.cuda.empty_cache()
     phase_analysis(analysis_case)
+    torch.cuda.empty_cache()
+    phase_preprocess()
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     kernels = []
     for name, s in summary.items():

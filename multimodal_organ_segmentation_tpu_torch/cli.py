@@ -12,16 +12,18 @@
         --checkpoint outputs/x/best --input data/test --output explain --gradcam
     python -m multimodal_organ_segmentation_tpu_torch --mode analysis \
         --input case_dir --output analysis --suv-analysis --tmtv-analysis --generate-report
+    python -m multimodal_organ_segmentation_tpu_torch --mode preprocess \
+        --input data/raw --output data/processed
 
 The same mode vocabulary, flags and config overrides (``--set KEY=VALUE``)
 as the JAX CLI. ``train``, ``eval`` (resized-grid, or native-grid with
 ``evaluation.sliding_window: true``), ``inference``, ``serve`` (the HTTP
 service), ``tune`` (the serving tuner), ``export`` (``--format torch``: a
 reference ``.pth``; ``--format pt2``: an exported program), ``explain``
-(GradCAM, attention maps, integrated gradients, t-SNE) and ``analysis``
-(SUV, TMTV/TLG, histograms, reports) run here; ``preprocess`` stays in the
-parser and raises ``NotImplementedError`` naming its slice. Every mode runs
-on the CUDA device unless ``--device cpu`` asks for the CPU; without a card
+(GradCAM, attention maps, integrated gradients, t-SNE), ``analysis``
+(SUV, TMTV/TLG, histograms, reports) and ``preprocess`` (DICOM → NIfTI,
+spacing resample, SUV, registration) run here. Every mode runs on the CUDA
+device unless ``--device cpu`` asks for the CPU; without a card
 it raises, it never falls back to the CPU. Checkpoints are the port's own
 (``tree.pt`` directories).
 """
@@ -31,6 +33,7 @@ from __future__ import annotations
 import argparse
 import csv
 import sys
+import time
 from pathlib import Path
 
 import torch
@@ -44,9 +47,6 @@ from multimodal_organ_segmentation_tpu_torch.utils.prng import set_seed
 
 _DEFAULT_CONFIG = str(Path(__file__).resolve().parents[1] / "configs" / "default.yaml")
 
-# modes of the JAX CLI that come with later slices of the port
-LATER_MODES = {"preprocess": "preprocessing"}
-
 
 def parse_args(argv=None) -> argparse.Namespace:
     parser = argparse.ArgumentParser(
@@ -55,8 +55,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     )
     parser.add_argument(
         "--mode", required=True,
-        choices=["train", "eval", "inference", "export", "serve", "tune", "explain", "analysis",
-                 *LATER_MODES],
+        choices=["train", "eval", "inference", "preprocess", "export", "serve", "tune", "explain",
+                 "analysis"],
     )
     parser.add_argument("--config", default=_DEFAULT_CONFIG)
     parser.add_argument("--exp-name", dest="exp_name", default=None)
@@ -248,6 +248,63 @@ def run_inference(config, logger) -> None:
     logger.info("Inference completed")
 
 
+def run_preprocess(config, logger) -> None:
+    """DICOM series under ``--input/{MOD}`` → NIfTI volumes and metadata
+    under ``--output/{MOD}``, each resampled to its
+    ``data.preprocessing.<mod>.target_spacing`` when one is set, SUV volumes
+    of the PET, then registration of every modality to
+    ``data.primary_modality`` (``preprocessing/``)."""
+    from multimodal_organ_segmentation_tpu_torch.preprocessing import (
+        DicomConverter,
+        ImageRegistration,
+        SUVCalculator,
+    )
+    from multimodal_organ_segmentation_tpu_torch.preprocessing.resample import resample_file
+
+    input_path = config["_args"].get("input")
+    output_path = config["_args"].get("output") or "data/processed"
+    if input_path is None:
+        raise ValueError("--input is required for preprocess mode")
+    device = _device(config)
+
+    logger.info(f"Preprocess: {input_path} → {output_path}")
+    Path(output_path).mkdir(parents=True, exist_ok=True)
+    converter = DicomConverter(config)
+    suv_calc = SUVCalculator(config)
+    registrator = ImageRegistration(config, device)
+
+    modalities = list(config.get("data.modalities", ["CT", "PET"]))
+    for modality in modalities:
+        mod_in = Path(input_path) / modality
+        mod_out = Path(output_path) / modality
+        if mod_in.exists():
+            logger.info(f"Processing {modality}")
+            start = time.perf_counter()
+            nifti_path = converter.convert(mod_in, mod_out, modality=modality)
+            logger.info(f"{modality}: convert {time.perf_counter() - start:.3f} s")
+            if nifti_path is not None:
+                # spacing resample if configured (the reference declares
+                # target_spacing but never applies it)
+                spacing = config.get(f"data.preprocessing.{modality.lower()}.target_spacing")
+                if spacing:
+                    start = time.perf_counter()
+                    resample_file(nifti_path, nifti_path, list(spacing), device=device)
+                    logger.info(f"{modality}: resample {time.perf_counter() - start:.3f} s")
+            if modality == "PET" and nifti_path is not None:
+                # SUV from the converted volume + its saved metadata
+                start = time.perf_counter()
+                suv_calc.calculate(nifti_path, mod_out)
+                logger.info(f"{modality}: suv {time.perf_counter() - start:.3f} s")
+
+    if len(modalities) > 1 and bool(config.get("data.registration.enabled", False)):
+        logger.info("Registering images")
+        start = time.perf_counter()
+        registrator.register(output_path, config.get("data.primary_modality", "CT"))
+        logger.info(f"register {time.perf_counter() - start:.3f} s; pyramid "
+                    f"{registrator.levels}")
+    logger.info("Preprocessing completed")
+
+
 def run_export(config, logger) -> None:
     """Export a port checkpoint to a deployment artifact.
 
@@ -381,14 +438,6 @@ def run_analysis(config, logger) -> None:
     logger.info("Analysis completed")
 
 
-def _later_mode(mode: str):
-    def run(config, logger) -> None:
-        from multimodal_organ_segmentation_tpu_torch.train.trainer import _later
-
-        raise _later(f"--mode {mode}", LATER_MODES[mode])
-    return run
-
-
 def main(argv=None) -> None:
     args = parse_args(argv)
     config = load_config(args.config)
@@ -417,8 +466,7 @@ def main(argv=None) -> None:
 
     runners = {"train": run_train, "eval": run_eval, "inference": run_inference,
                "export": run_export, "serve": run_serve, "tune": run_tune,
-               "explain": run_explain, "analysis": run_analysis}
-    runners.update({mode: _later_mode(mode) for mode in LATER_MODES})
+               "explain": run_explain, "analysis": run_analysis, "preprocess": run_preprocess}
     try:
         runners[args.mode](config, logger)
     except KeyboardInterrupt:

@@ -301,10 +301,10 @@ def test_train_writes_a_checkpoint_that_inference_loads(world, tmp_path):
         assert mask.shape == shape and mask.max() < CLASSES
 
 
-@pytest.mark.parametrize("mode", sorted(cli.LATER_MODES))
-def test_modes_of_later_slices_raise(world, mode):
-    with pytest.raises(NotImplementedError, match="slice"):
-        _run(world["config"], mode)
+def test_preprocess_without_input_raises(world):
+    """``--mode preprocess`` needs ``--input``, as the JAX CLI's does."""
+    with pytest.raises(ValueError, match="--input is required for preprocess mode"):
+        _run(world["config"], "preprocess")
 
 
 def test_no_card_and_no_device_flag_raises(world, monkeypatch):

@@ -46,7 +46,10 @@ def test_port_and_chip_smoke_import_no_jax():
                 "explainability", "explainability.gradcam", "explainability.attention",
                 "explainability.shap_analysis", "explainability.tsne", "explainability.runner",
                 "analysis", "analysis.suv", "analysis.tmtv", "analysis.histogram",
-                "analysis.report", "utils.xlsx", "utils.visualization"):
+                "analysis.report", "utils.xlsx", "utils.visualization", "preprocessing",
+                "preprocessing.dicom", "preprocessing.dicom_converter", "preprocessing.normalizer",
+                "preprocessing.suv_calculator", "preprocessing.registration",
+                "preprocessing.resample"):
         assert f"{pkg}.{new}" in mods, new
     code = (
         "import importlib, json, sys\n"
