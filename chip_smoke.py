@@ -117,7 +117,19 @@ Phases (any failure exits non-zero; no phase's error is caught):
    ``register_arrays`` at the full 333×333×350 grid for rigid, affine and
    deformable against planted transforms, held to the JAX TRE gates, and
    one ``register_arrays`` a method at 48³ on the card against the same on
-   CPU tensors (final parameters within 1e-3 voxel).
+   CPU tensors (final parameters within 1e-3 voxel);
+15. multi  — the multi-device layer on the one card: (a) one NCCL rank on
+   cuda:0 runs ``sharded_sliding_window_inference`` and the runner with a
+   mesh over a 192×192×256 flagship volume at full width, both equal bit
+   for bit to the one-device runner's logits, kernels A and B launched as
+   the tile grid plans; (b) two processes share cuda:0 under gloo (the
+   gathers and the ring's exchanges stage through the host, gloo's only
+   way with CUDA tensors): the tile-sharded volume within bf16 ``TOL`` of
+   (a), one data-parallel f32 train step of the flagship (micro-batch 2
+   split 1 + 1) within ``STEP_RTOL`` of the one-rank step, the ring at the
+   DE128 24³ level against dense attention (f32, forward and backward,
+   within ``TOL``); (c) wall times and each rank's peak memory beside the
+   card's name and power limit. No multi-GPU number: one card.
 
 The line before the last holds one JSON object ``{"kernels": [...]}``;
 the last line is ``{"ok": true, "device": {...}}``. Without a CUDA device
@@ -2793,6 +2805,240 @@ def phase_preprocess(device: str = "cuda", ct=PREP_CT, pet=PREP_PET, shift_mm=PR
     shutil.rmtree(work)
 
 
+MULTI_RANKS = 2  # processes sharing cuda:0 under gloo in [multi] (b)
+MULTI_RING = (1, 13824, 4, 32)  # the DE128 cross attention's 24³ level: [B, N, H, D]
+
+
+def _multi_volume():
+    """The [multi] phase's 192×192×256 CT+PET volume, from the seed."""
+    import torch
+
+    rng = np.random.default_rng(FLAGSHIP["experiment"]["seed"] + 10)
+    return torch.from_numpy(rng.standard_normal((*VOLUME, 2), np.float32)).cuda()
+
+
+def _multi_sw():
+    sw_cfg = FLAGSHIP["inference"]["sliding_window"]
+    return (tuple(sw_cfg["roi_size"]), FLAGSHIP["model"]["out_channels"], sw_cfg["overlap"],
+            FLAGSHIP["inference"]["batch_size"])
+
+
+def multi_rank(rank: int, world: int, rendezvous: str, ref_path: str, out_path: str) -> None:
+    """One of the [multi] phase's gloo ranks on cuda:0: the tile-sharded
+    flagship volume, one data-parallel f32 train step of the flagship (the
+    rank's rows of a micro-batch of 2) and the one-rank step on the whole
+    micro-batch (rank 0), the ring at a DE128 level; results to
+    ``out_path``."""
+    import torch
+    import torch.distributed as dist
+
+    from multimodal_organ_segmentation_tpu_torch.models.build import build_model
+    from multimodal_organ_segmentation_tpu_torch.ops.sliding_window import (
+        sharded_sliding_window_inference,
+    )
+    from multimodal_organ_segmentation_tpu_torch.parallel.mesh import all_gather_cat, make_mesh
+    from multimodal_organ_segmentation_tpu_torch.parallel.ring_attention import ring_attention
+    from multimodal_organ_segmentation_tpu_torch.train.trainer import Trainer
+
+    torch.cuda.set_device(0)
+    import datetime
+
+    dist.init_process_group("gloo", init_method=f"file://{rendezvous}", rank=rank,
+                            world_size=world, timeout=datetime.timedelta(seconds=240))
+    out = {}
+    try:
+        mesh = make_mesh()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model = build_model(FLAGSHIP)
+        roi, classes, overlap, sw = _multi_sw()
+        with torch.no_grad():
+            logits = sharded_sliding_window_inference(_multi_volume(), model, roi, classes, mesh,
+                                                      overlap=overlap, sw_batch_size=sw)
+        torch.cuda.synchronize()
+        out["volume_s"] = time.perf_counter() - t0
+        if rank == 0:
+            ref = torch.load(ref_path, map_location="cuda")
+            out["volume_err"] = float((logits - ref).abs().max())
+            out["volume_scale"] = float(ref.abs().max())
+        del model, logits
+        torch.cuda.empty_cache()
+
+        # one data-parallel f32 step: this rank's row of a micro-batch of 2
+        tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+        patches = training_patches(2, FLAGSHIP["experiment"]["seed"])
+        batch = [{"image": np.stack([p[0] for p in patches]),
+                  "label": np.stack([p[1] for p in patches])}]
+        t0 = time.perf_counter()
+        for name, mesh_arg in (("dp", None), ("one", False)):
+            if name == "one" and rank != 0:
+                break
+            trainer = Trainer(train_config("fp32", accumulation_steps=1), mesh=mesh_arg)
+            trainer.init_state()
+            images, labels = trainer._stack_accum(batch)
+            _, metrics = trainer.train_step_fn()(trainer.state, images, labels,
+                                                 trainer.keys.next(), rows=trainer._step_rows)
+            out[name] = {"rows": int(images.shape[1]), "loss": float(metrics["loss"]),
+                         "grad_norm": float(metrics["grad_norm"])}
+            del trainer, images, labels
+            torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        out["train_s"] = time.perf_counter() - t0
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+
+        # the ring at the DE128 level (f32), forward and backward, against
+        # dense attention computed on one rank
+        b, n, h, d = MULTI_RING
+        g = torch.Generator(device="cuda").manual_seed(3)
+        q, k, v, do = (torch.randn(MULTI_RING, generator=g, device="cuda") for _ in range(4))
+        q, k, v = (t.requires_grad_() for t in (q, k, v))
+        t0 = time.perf_counter()
+        m = n // world
+        sl = slice(rank * m, (rank + 1) * m)
+        ring = all_gather_cat(ring_attention(q[:, sl], k[:, sl], v[:, sl], mesh), 1, mesh)
+        (ring * do).sum().div(world).backward()
+        grads = [t.grad.clone() for t in (q, k, v)]
+        for t in grads:
+            dist.all_reduce(t)
+        torch.cuda.synchronize()
+        out["ring_s"] = time.perf_counter() - t0
+        if rank == 0:
+            for t in (q, k, v):
+                t.grad = None
+            dense = torch.cat([torch.softmax(
+                torch.einsum("bnd,bmd->bnm", q[:, i:i + 1728, hh], k[:, :, hh]) * d ** -0.5, -1)
+                @ v[:, :, hh] for hh in range(h) for i in range(0, n, 1728)], 1)
+            dense = dense.reshape(b, h, n, d).permute(0, 2, 1, 3)
+            (dense * do).sum().backward()
+            out["ring_err"] = float((ring - dense).detach().abs().max())
+            out["ring_grad_err"] = max(float((gr - t.grad).abs().max())
+                                       for gr, t in zip(grads, (q, k, v)))
+        out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+        torch.save(out, out_path)
+
+
+def phase_multi() -> dict:
+    """Multi-device on one card: (a) one NCCL rank on cuda:0 runs
+    ``sharded_sliding_window_inference`` and the runner with a mesh over the
+    flagship volume at full width, each equal bit for bit to the
+    one-device runner's logits, kernels A and B launched as the tile grid
+    plans; (b) ``MULTI_RANKS`` processes share cuda:0 under gloo (CUDA
+    collectives gloo cannot carry stage through the host): the tile-sharded
+    volume within bf16 ``TOL`` of (a), one data-parallel f32 train step of
+    the flagship (micro-batch 2 split 1 + 1) within ``STEP_RTOL`` of the
+    one-rank step, the ring at a DE128 level (f32, forward and backward)
+    against dense attention within ``TOL``; (c) wall times and peak memory
+    per rank beside the card's name and power limit. Returns (a)'s launches."""
+    import multiprocessing
+
+    import torch
+    import torch.distributed as dist
+
+    from multimodal_organ_segmentation_tpu_torch.models.build import build_model
+    from multimodal_organ_segmentation_tpu_torch.ops.flash_attention import flash_attention
+    from multimodal_organ_segmentation_tpu_torch.ops.sliding_window import (
+        SlidingWindowRunner,
+        sharded_sliding_window_inference,
+        tile_count,
+    )
+    from multimodal_organ_segmentation_tpu_torch.ops.window_attention import window_mha
+    from multimodal_organ_segmentation_tpu_torch.parallel.mesh import make_mesh
+
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_multi_", dir="outputs")).resolve()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    try:
+        # (a) one NCCL rank
+        t0 = time.perf_counter()
+        dist.init_process_group("nccl", init_method=f"file://{work / 'nccl'}", rank=0,
+                                world_size=1)
+        try:
+            torch.cuda.reset_peak_memory_stats()
+            model = build_model(FLAGSHIP)
+            roi, classes, overlap, sw = _multi_sw()
+            vol = _multi_volume()
+            predict = lambda prm, p: model(p)  # noqa: E731
+            with torch.no_grad():
+                ref = SlidingWindowRunner(predict, roi, classes, overlap, sw)(vol)
+                chunks = math.ceil(tile_count(VOLUME, roi, overlap) / sw)
+                expect = predicted_launches(sw, 2 * chunks, 2 * chunks)
+                mesh = make_mesh()
+                reset_launches(window_mha, flash_attention)
+                sharded = sharded_sliding_window_inference(vol, model, roi, classes, mesh,
+                                                           overlap=overlap, sw_batch_size=sw)
+                runner = SlidingWindowRunner(predict, roi, classes, overlap, sw, mesh=mesh)(vol)
+                torch.cuda.synchronize()
+            launches = attention_launches()
+            same = torch.equal(sharded, ref) and torch.equal(runner, ref)
+            ok = same and bool(torch.isfinite(ref).all()) and ref.shape == (*VOLUME, classes)
+            torch.save(ref, work / "ref.pt")
+            peak_a = torch.cuda.max_memory_allocated() / 2**30
+            del model, vol, ref, sharded, runner
+            torch.cuda.empty_cache()
+        finally:
+            dist.destroy_process_group()
+        wall_a = time.perf_counter() - t0
+        log(f"[multi] (a) one NCCL rank on cuda:0, {VOLUME}x2, {chunks} chunks of {sw}: "
+            f"sharded_sliding_window_inference and the runner with a mesh equal to the "
+            f"one-device runner bit for bit: {same}; wall {wall_a:.1f} s (model build, 3 "
+            f"volumes), max_memory_allocated {peak_a:.2f} GiB")
+        log(f"[multi] (a) kernels {json.dumps(launches)} expected {json.dumps(expect)}")
+        if not ok:
+            raise SystemExit("[multi] the sharded sliding window at one rank differs from the "
+                             "one-device runner")
+        if launches != expect:
+            raise SystemExit("[multi] the sharded path's kernel launches differ from the plan")
+
+        # (b) MULTI_RANKS processes on cuda:0 under gloo
+        t0 = time.perf_counter()
+        ctx = multiprocessing.get_context("spawn")
+        procs = [ctx.Process(target=multi_rank, args=(r, MULTI_RANKS, str(work / "gloo"),
+                                                      str(work / "ref.pt"), str(work / f"r{r}.pt")))
+                 for r in range(MULTI_RANKS)]
+        for proc in procs:
+            proc.start()
+        for proc in procs:
+            proc.join(timeout=480)
+        wall_b = time.perf_counter() - t0
+        codes = [proc.exitcode for proc in procs]
+        for proc in procs:
+            if proc.is_alive():
+                proc.kill()
+        if codes != [0] * MULTI_RANKS:
+            raise SystemExit(f"[multi] (b) a gloo rank failed: exit codes {codes} (a collective "
+                             "gloo cannot carry on CUDA tensors raises there)")
+        ranks = [torch.load(work / f"r{r}.pt") for r in range(MULTI_RANKS)]
+        r0 = ranks[0]
+        rel = max(abs(r0["dp"]["loss"] - r0["one"]["loss"]) / abs(r0["one"]["loss"]),
+                  abs(r0["dp"]["grad_norm"] - r0["one"]["grad_norm"]) / abs(r0["one"]["grad_norm"]))
+        log(f"[multi] (b) {MULTI_RANKS} gloo ranks sharing cuda:0: wall {wall_b:.1f} s (process "
+            f"start included); per rank: volume s {[round(r['volume_s'], 2) for r in ranks]}, "
+            f"train s {[round(r['train_s'], 2) for r in ranks]}, ring s "
+            f"{[round(r['ring_s'], 2) for r in ranks]}, max_memory_allocated GiB "
+            f"{[round(r['peak_gib'], 2) for r in ranks]}")
+        log(f"[multi] (b) tile-sharded volume against (a): max |diff| {r0['volume_err']:.3e} "
+            f"(logits up to {r0['volume_scale']:.2f}; tol {TOL['bfloat16']})")
+        log(f"[multi] (b) DP f32 step, rows {[r['dp']['rows'] for r in ranks]} of 2: loss "
+            f"{r0['dp']['loss']:.6f} grad_norm {r0['dp']['grad_norm']:.6f}; one rank, rows "
+            f"{r0['one']['rows']}: loss {r0['one']['loss']:.6f} grad_norm "
+            f"{r0['one']['grad_norm']:.6f}; max relative difference {rel:.2e} (tol {STEP_RTOL:.0e})")
+        log(f"[multi] (b) ring {list(MULTI_RING)} f32 over {MULTI_RANKS} ranks against dense "
+            f"attention: out {r0['ring_err']:.3e}, q/k/v gradients {r0['ring_grad_err']:.3e} "
+            f"(tol {TOL['float32']})")
+        log(f"[multi] (c) {smi}; (a) {wall_a:.1f} s, (b) {wall_b:.1f} s")
+        if not (r0["volume_err"] <= TOL["bfloat16"] and rel <= STEP_RTOL
+                and [r["dp"]["rows"] for r in ranks] == [1] * MULTI_RANKS
+                and r0["ring_err"] <= TOL["float32"] and r0["ring_grad_err"] <= TOL["float32"]):
+            raise SystemExit("[multi] (b) a check of the gloo ranks failed")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return launches
+
+
 def phase_models() -> dict:
     """The other model families on the card: the 128³ DualEncoder tile check,
     serving every configuration of ``MODEL_KEYS``, the DualEncoder's training and its
@@ -2859,6 +3105,8 @@ def main(argv) -> int:
     phase_analysis(analysis_case)
     torch.cuda.empty_cache()
     phase_preprocess()
+    torch.cuda.empty_cache()
+    by_path["multi"] = phase_multi()
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     kernels = []
     for name, s in summary.items():

@@ -26,12 +26,22 @@ spacing resample, SUV, registration) run here. Every mode runs on the CUDA
 device unless ``--device cpu`` asks for the CPU; without a card
 it raises, it never falls back to the CPU. Checkpoints are the port's own
 (``tree.pt`` directories).
+
+Several processes, one per device (``parallel.multihost``, default auto)::
+
+    torchrun --nproc_per_node N -m multimodal_organ_segmentation_tpu_torch --mode train ...
+
+The process group starts before anything else (NCCL on the card, where each
+rank takes ``cuda:LOCAL_RANK``; gloo with ``--device cpu``); the trainer then
+splits batches, tile chunks or cases over the ranks, and rank 0 writes the
+metrics, checkpoints and logs (the other ranks log to ``<mode>.rank<k>.log``).
 """
 
 from __future__ import annotations
 
 import argparse
 import csv
+import os
 import sys
 import time
 from pathlib import Path
@@ -114,7 +124,9 @@ def resolve_device(name) -> torch.device:
             raise RuntimeError(
                 "no CUDA device: the port runs on the card; pass --device cpu to run on the CPU"
             )
-        return torch.device("cuda")
+        # one rank per device under torchrun: this rank's card
+        local = os.environ.get("LOCAL_RANK")
+        return torch.device("cuda", int(local)) if local is not None else torch.device("cuda")
     return torch.device(name)
 
 
@@ -187,6 +199,13 @@ def run_eval(config, logger) -> None:
         trainer.load_params(ckpt)
         metrics = trainer.evaluate()
     logger.info(f"Results: {metrics}")
+
+    from multimodal_organ_segmentation_tpu_torch.parallel.mesh import world
+
+    if world()[0] != 0:
+        # every rank holds the merged metrics: rank 0 writes them
+        logger.info("Non-zero rank: metrics written by rank 0")
+        return
 
     out = config["_args"].get("output")
     name = "eval_native.json" if native else "eval_metrics.json"
@@ -449,14 +468,25 @@ def main(argv=None) -> None:
     config = merge_config_with_args(config, args, schema=schema)
     # the device is settled before anything is built: no card and no
     # --device cpu stops here
-    resolve_device(args.device)
+    device = resolve_device(args.device)
+    if device.index is not None:
+        torch.cuda.set_device(device)
+    # the process group of a job of several ranks comes before everything
+    # else (NCCL for the card, gloo for the CPU)
+    from multimodal_organ_segmentation_tpu_torch.parallel.multihost import (
+        maybe_initialize_distributed,
+    )
+    from multimodal_organ_segmentation_tpu_torch.parallel.mesh import world
+
+    maybe_initialize_distributed(config, device=device)
+    rank = world()[0]
 
     log_dir = Path(config.get("experiment.log_dir", "logs")) / str(
         config.get("experiment.name", "exp")
     )
     logger = setup_logger(
         name="main",
-        log_file=str(log_dir / f"{args.mode}.log"),
+        log_file=str(log_dir / (f"{args.mode}.log" if rank == 0 else f"{args.mode}.rank{rank}.log")),
         level="DEBUG" if args.debug else "INFO",
     )
     set_seed(int(config.get("experiment.seed", 42)))

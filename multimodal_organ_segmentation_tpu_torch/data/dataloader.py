@@ -308,6 +308,12 @@ def get_dataloader(
         shuffle = is_train
     if drop_last is None:
         drop_last = is_train
+    # a job of several ranks: the TRAIN stream is split by rank (each loads
+    # its rows of every global batch; the trainer knows them from
+    # process_shard). Validation stays whole on every rank.
+    from multimodal_organ_segmentation_tpu_torch.parallel.mesh import world
+
+    rank, nproc = world()
     return DataLoader(
         dataset,
         batch_size=int(config.get("training.batch_size", 2)),
@@ -316,4 +322,5 @@ def get_dataloader(
         num_workers=int(config.get("hardware.num_workers", 4)),
         prefetch=int(config.get("hardware.prefetch_depth", 2)),
         seed=int(config.get("experiment.seed", 42)),
+        process_shard=(rank, nproc) if (is_train and nproc > 1) else None,
     )

@@ -99,6 +99,8 @@ class DualEncoder(nn.Module):
         xattn_max_tokens: int = 16384,
         deep_supervision: bool = False,
         img_size: Sequence[int] = (96, 96, 96),
+        sequence_axis: Optional[str] = None,
+        mesh=None,
     ):
         super().__init__()
         if fusion_type not in FUSION_TYPES:
@@ -113,6 +115,8 @@ class DualEncoder(nn.Module):
         self.xattn_max_tokens = int(xattn_max_tokens)
         self.deep_supervision = deep_supervision
         self.img_size = tuple(int(s) for s in img_size)
+        self.sequence_axis = sequence_axis if mesh is not None else None
+        self.mesh = mesh
         for m in range(num_modalities):
             self.add_module(f"encoder{m}", _Encoder(feats, norm))
         grid = self.img_size
@@ -138,15 +142,25 @@ class DualEncoder(nn.Module):
         if t == "suv_guided":
             return f"fusion_suv{level}", SUVGuidedAttention(c, suv_threshold)
         if t in ("cross_attention", "bidirectional") and self._attends(grid):
+            ring = dict(sequence_axis=self.sequence_axis, mesh=self.mesh)
             if t == "cross_attention":
-                return f"fusion_xattn{level}", CrossAttentionFusion(c, num_heads=heads)
-            return f"fusion_bixattn{level}", BidirectionalCrossAttention(c, num_heads=heads)
+                return f"fusion_xattn{level}", CrossAttentionFusion(c, num_heads=heads, **ring)
+            return f"fusion_bixattn{level}", BidirectionalCrossAttention(c, num_heads=heads, **ring)
         return None
 
     def _attends(self, grid: Sequence[int]) -> bool:
         """Voxel-token attention is O(N²): a level attends only within the
-        token budget, and fuses by addition above it."""
-        return grid[0] * grid[1] * grid[2] <= self.xattn_max_tokens
+        token budget, and fuses by addition above it. The ring shards the
+        tokens and the O(N²) work over the sequence axis, so where its size
+        divides the level's token count the budget grows by that size: which
+        levels attend (and which modules exist) depends on the axis size."""
+        n = grid[0] * grid[1] * grid[2]
+        budget = self.xattn_max_tokens
+        if self.sequence_axis is not None:
+            size = self.mesh.shape.get(self.sequence_axis, 1)
+            if size > 1 and n % size == 0:
+                budget *= size
+        return n <= budget
 
     @property
     def perturb_points(self) -> List[str]:
@@ -228,20 +242,14 @@ class DualEncoder(nn.Module):
         return list(self.features)
 
 
-def _world_size() -> int:
-    import torch.distributed as dist
-
-    return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
-
-
 def build_dual_encoder(config, dtype: torch.dtype = torch.float32) -> DualEncoder:
     """Factory from config (the JAX package's ``build_dual_encoder``).
 
-    ``parallel.sequence_axis`` shards cross attention's tokens over a mesh
-    axis (ring attention). On one device the JAX builder drops it, the axis
-    having size 1; this port runs one process on one device and drops it the
-    same way. A process group of more than one raises: the ring comes with
-    the multi-device slice.
+    ``parallel.sequence_axis`` shards cross attention's tokens over that axis
+    of the job's process mesh (ring attention); the mesh's size there decides
+    which levels attend, so the module tree is built for the process group
+    this is called in. A size-1 axis (one process) is dropped, as the JAX
+    builder drops it.
     """
     backbone = config.get("model.backbone", {}) or {}
     fusion = config.get("model.fusion", {}) or {}
@@ -249,10 +257,14 @@ def build_dual_encoder(config, dtype: torch.dtype = torch.float32) -> DualEncode
     ftype = str(fusion.get("type", "concat"))
     if ftype in ("early", "late"):  # the CLI vocabulary onto the DualEncoder's
         ftype = "concat"
-    if config.get("parallel.sequence_axis", None) and _world_size() > 1:
-        raise NotImplementedError(
-            "parallel.sequence_axis across processes (ring attention, A24) is not ported to the "
-            "PyTorch package yet; it comes with the multi-device slice")
+    sequence_axis = config.get("parallel.sequence_axis", None)
+    mesh = None
+    if sequence_axis:
+        from multimodal_organ_segmentation_tpu_torch.parallel.mesh import make_mesh
+
+        mesh = make_mesh(config)
+        if mesh.shape.get(str(sequence_axis), 1) <= 1:
+            sequence_axis, mesh = None, None
     return DualEncoder(
         num_modalities=len(modalities),
         out_channels=int(config.get("model.out_channels", 8)),
@@ -266,4 +278,6 @@ def build_dual_encoder(config, dtype: torch.dtype = torch.float32) -> DualEncode
         xattn_max_tokens=int(fusion.get("max_tokens", 16384)),
         deep_supervision=deep_supervision(config),
         img_size=tuple(backbone.get("img_size", [96, 96, 96])),
+        sequence_axis=str(sequence_axis) if sequence_axis else None,
+        mesh=mesh,
     )

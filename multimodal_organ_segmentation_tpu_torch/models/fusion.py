@@ -12,9 +12,10 @@
 
 Features are channels-last ``[B, H, W, D, C]``; the JAX package's 1×1×1
 convs are held as ``Linear`` over the channel axis. Torch fixes parameter
-shapes at construction, so each module takes its channel counts. The
-ring-attention branch of ``CrossAttentionFusion`` (sequence parallelism over
-a mesh axis) belongs to the multi-device slice. ``AttentionFusion``'s
+shapes at construction, so each module takes its channel counts.
+``CrossAttentionFusion`` runs as a K/V ring over a process mesh's axis when
+given ``sequence_axis`` and ``mesh`` and the ranks share a batch (sequence
+parallelism). ``AttentionFusion``'s
 modality weights, which the JAX module sows for the explainability code,
 go to a ``sow`` list when the caller passes one.
 """
@@ -29,12 +30,53 @@ from torch import nn
 
 from multimodal_organ_segmentation_tpu_torch.models.layers import (
     Conv3d,
+    Dropout,
     Linear,
     conv_cl,
     instance_norm,
 )
 from multimodal_organ_segmentation_tpu_torch.ops.attention import multi_head_attention
 from multimodal_organ_segmentation_tpu_torch.ops.resize import resize_linear
+
+_RING_FALLBACK_WARNED: set = set()
+
+
+def _warn_ring_fallback(axis: str, n: int, size: int) -> None:
+    """Warn (once per shape) when ring attention was configured but the
+    token count cannot ride the mesh axis: the fallback to one rank's flash
+    attention must not hide a disabled parallelism."""
+    key = (axis, n, size)
+    if key in _RING_FALLBACK_WARNED:
+        return
+    _RING_FALLBACK_WARNED.add(key)
+    import warnings
+
+    warnings.warn(
+        f"ring attention configured on mesh axis '{axis}' (size {size}) but "
+        f"token count {n} is not shardable over it — falling back to "
+        f"single-device flash attention. Sequence parallelism is OFF for "
+        f"this tensor.",
+        stacklevel=3,
+    )
+
+
+def _warn_ring_unshared(axis: str) -> None:
+    """Warn (once per axis) when ring attention was configured but the ranks
+    are not known to hold one batch (each its own tiles or cases): their
+    tokens must not meet in one ring, so each rank attends alone."""
+    key = (axis, "unshared")
+    if key in _RING_FALLBACK_WARNED:
+        return
+    _RING_FALLBACK_WARNED.add(key)
+    import warnings
+
+    warnings.warn(
+        f"ring attention configured on mesh axis '{axis}' but the ranks do not "
+        f"hold one batch here (each runs its own tiles or cases) — falling back "
+        f"to single-device flash attention. Sequence parallelism is OFF for "
+        f"these calls.",
+        stacklevel=3,
+    )
 
 
 class EarlyFusion(nn.Module):
@@ -125,21 +167,35 @@ class CrossAttentionFusion(nn.Module):
     ``multi_head_attention``: the custom op of kernel B (the kernel on the
     card, its plain version on the CPU), or the blockwise plain version for
     bf16 on the CPU and when ``use_kernel`` is False (``set_use_kernels``).
+
+    Sequence parallelism: with ``sequence_axis`` naming an axis of ``mesh``
+    (a process mesh, ``parallel/mesh.py``) whose size divides the token
+    count, the tokens are sharded over its ranks and attention runs as a K/V
+    ring (``parallel/ring_attention.py``); otherwise it warns once and falls
+    back to the path above, as the JAX module does. The ring runs only where
+    the ranks are known to compute on one batch (``parallel.mesh.rows`` in
+    the data-parallel step and validation, ``parallel.mesh.same_input``);
+    elsewhere, as in the tile-sharded sliding window or case sharding, each
+    rank holds other inputs, and it warns once and falls back likewise.
     """
 
     def __init__(self, channels: int, num_heads: int = 4, dropout: float = 0.0,
-                 kv_block: int = 2048):
+                 kv_block: int = 2048, sequence_axis: Optional[str] = None, mesh=None):
         super().__init__()
         if channels % num_heads:
             raise ValueError(f"channels {channels} must divide num_heads {num_heads}")
         self.num_heads = num_heads
         self.kv_block = kv_block
+        if sequence_axis is not None and mesh is not None:
+            mesh.group(sequence_axis)  # an axis other than data raises here
+        self.sequence_axis = sequence_axis
+        self.mesh = mesh
         self.use_kernel = True
         self.q_proj = Linear(channels, channels)
         self.k_proj = Linear(channels, channels)
         self.v_proj = Linear(channels, channels)
         self.out_proj = Linear(channels, channels)
-        self.dropout = nn.Dropout(dropout)
+        self.dropout = Dropout(dropout)
 
     def forward(self, query_features: torch.Tensor, key_value_features: torch.Tensor) -> torch.Tensor:
         b, h, w, d, c = query_features.shape
@@ -148,19 +204,66 @@ class CrossAttentionFusion(nn.Module):
         q = self.q_proj(query_features).reshape(b, n, self.num_heads, hd)
         k = self.k_proj(key_value_features).reshape(b, -1, self.num_heads, hd)
         v = self.v_proj(key_value_features).reshape(b, -1, self.num_heads, hd)
-        out = multi_head_attention(q, k, v, kv_block=self.kv_block, use_kernel=self.use_kernel)
+        if self._ring_ok(n) and k.shape[1] == n:
+            out = self._ring(q, k, v)
+        else:
+            out = multi_head_attention(q, k, v, kv_block=self.kv_block, use_kernel=self.use_kernel)
         out = self.dropout(self.out_proj(out.reshape(b, h, w, d, c)))
         return conv_cl(instance_norm, query_features + out)
+
+    def _ring_ok(self, n: int) -> bool:
+        if self.sequence_axis is None or self.mesh is None:
+            return False
+        from multimodal_organ_segmentation_tpu_torch.parallel.mesh import ranks_share_batch
+
+        size = self.mesh.shape.get(self.sequence_axis, 1)
+        ok = size > 1 and n % size == 0
+        if not ok:
+            _warn_ring_fallback(self.sequence_axis, n, size)
+        elif not ranks_share_batch():
+            _warn_ring_unshared(self.sequence_axis)
+            ok = False
+        return ok
+
+    def _ring(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+        """Ring attention over the ranks of ``sequence_axis``: this rank's
+        token shard of every row attends over the ring, and the output's
+        shards are gathered back. On a batch split over the same ranks (data
+        parallelism: ``parallel.mesh.rows``) q, k and v are first gathered
+        over the batch and the rank keeps its rows of the output at the end,
+        which GSPMD does for the JAX package. Every step differentiates."""
+        from multimodal_organ_segmentation_tpu_torch.parallel.mesh import (
+            active_rows,
+            all_gather_cat,
+        )
+        from multimodal_organ_segmentation_tpu_torch.parallel.ring_attention import (
+            ring_attention,
+        )
+
+        mesh, axis = self.mesh, self.sequence_axis
+        split = active_rows()
+        if split is not None:
+            q, k, v = (all_gather_cat(t, 0, mesh, axis) for t in (q, k, v))
+        m = q.shape[1] // mesh.shape[axis]
+        lo = mesh.axis_rank(axis) * m
+        out = ring_attention(q[:, lo:lo + m], k[:, lo:lo + m], v[:, lo:lo + m], mesh, axis)
+        out = all_gather_cat(out, 1, mesh, axis)
+        if split is not None:
+            out = out[split[0]:split[0] + split[1]]
+        return out
 
 
 class BidirectionalCrossAttention(nn.Module):
     """Both directions of cross attention (``cross_1to2``, ``cross_2to1``),
     concat, 1×1 conv back to ``channels``, instance norm, relu."""
 
-    def __init__(self, channels: int, num_heads: int = 4, dropout: float = 0.0):
+    def __init__(self, channels: int, num_heads: int = 4, dropout: float = 0.0,
+                 sequence_axis: Optional[str] = None, mesh=None):
         super().__init__()
-        self.cross_1to2 = CrossAttentionFusion(channels, num_heads, dropout)
-        self.cross_2to1 = CrossAttentionFusion(channels, num_heads, dropout)
+        self.cross_1to2 = CrossAttentionFusion(channels, num_heads, dropout,
+                                               sequence_axis=sequence_axis, mesh=mesh)
+        self.cross_2to1 = CrossAttentionFusion(channels, num_heads, dropout,
+                                               sequence_axis=sequence_axis, mesh=mesh)
         self.fuse = Linear(2 * channels, channels)
 
     def forward(self, features_1: torch.Tensor, features_2: torch.Tensor) -> torch.Tensor:

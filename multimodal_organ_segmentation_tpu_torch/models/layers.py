@@ -9,7 +9,11 @@ Inputs are channels-first ``[B, C, H, W, D]`` views, in any memory format
 - ``UpBlock3D``: 2× transposed conv (or linear 2× upsample + 1×1 conv),
   linear resize when the grid does not match the skip's, skip concat,
   ``ConvBlock3D``;
-- ``Dropout3D``: channel dropout.
+- ``Dropout3D``, ``Dropout``: channel and element dropout.
+
+On a batch split over ranks (data parallelism, ``parallel/mesh.py``) batch
+norm takes the global batch's statistics and dropout the global batch's
+mask, so each rank computes its rows of the one-process result.
 
 Flax keeps f32 parameters and casts them to the module's compute dtype at
 each op. ``Linear``, ``Conv3d``, ``ConvTranspose3d`` and ``LayerNorm`` here do
@@ -28,6 +32,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from multimodal_organ_segmentation_tpu_torch.ops.resize import resize_linear
+from multimodal_organ_segmentation_tpu_torch.parallel.mesh import (
+    active_rows,
+    all_reduce_sum,
+    dropout_rows,
+)
 
 NORMS = ("instance", "group", "batch", "none")
 EPS = 1e-5
@@ -154,8 +163,17 @@ class Norm3D(nn.Module):
         shape = (1, -1) + (1,) * (x.dim() - 2)
         if self.training:
             dims = [0] + list(range(2, x.dim()))
-            mean = xf.mean(dims)
-            var = ((xf * xf).mean(dims) - mean * mean).clamp_min(0.0)
+            split = active_rows()
+            if split is None:
+                mean = xf.mean(dims)
+                var = ((xf * xf).mean(dims) - mean * mean).clamp_min(0.0)
+            else:
+                # a batch split over ranks: the global batch's statistics,
+                # as flax's BatchNorm takes them under GSPMD
+                count = xf.numel() // xf.shape[1] * split[2] // split[1]
+                sums = all_reduce_sum(torch.stack([xf.sum(dims), (xf * xf).sum(dims)]), split[3])
+                mean = sums[0] / count
+                var = (sums[1] / count - mean * mean).clamp_min(0.0)
             with torch.no_grad():
                 self.running_mean.mul_(BATCH_MOMENTUM).add_(mean.detach(), alpha=1 - BATCH_MOMENTUM)
                 self.running_var.mul_(BATCH_MOMENTUM).add_(var.detach(), alpha=1 - BATCH_MOMENTUM)
@@ -252,4 +270,16 @@ class Dropout3D(nn.Dropout3d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.p <= 0.0 or not self.training:
             return x
-        return super().forward(x)
+        split = dropout_rows(x, self.p, channel=True)
+        return super().forward(x) if split is None else split
+
+
+class Dropout(nn.Dropout):
+    """Element dropout; on a batch split over ranks (``parallel.mesh.rows``)
+    each rank keeps its rows of the mask the whole batch draws."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.p <= 0.0 or not self.training:
+            return x
+        split = dropout_rows(x, self.p, channel=False)
+        return super().forward(x) if split is None else split

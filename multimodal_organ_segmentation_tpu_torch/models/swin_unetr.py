@@ -56,6 +56,7 @@ from multimodal_organ_segmentation_tpu_torch.models.fusion import CrossAttention
 from multimodal_organ_segmentation_tpu_torch.models.layers import (
     Conv3d,
     ConvTranspose3d,
+    Dropout,
     LayerNorm,
     Linear,
     Norm3D,
@@ -189,7 +190,7 @@ class WindowAttention(nn.Module):
         self.register_buffer(
             "rel_index", torch.from_numpy(_relative_position_index(table_window)), persistent=False
         )
-        self.dropout = nn.Dropout(attn_drop)
+        self.dropout = Dropout(attn_drop)
 
     def bias(self, n: int) -> torch.Tensor:
         """The f32 ``[heads, N, N]`` relative-position bias."""
@@ -252,7 +253,7 @@ class SwinBlock(nn.Module):
         self.norm2 = LayerNorm(dim, eps=LN_EPS)
         self.mlp_fc1 = Linear(dim, int(dim * mlp_ratio))
         self.mlp_fc2 = Linear(int(dim * mlp_ratio), dim)
-        self.drop = nn.Dropout(drop)
+        self.drop = Dropout(drop)
         # the shift mask of the padded grid, fixed at construction: a buffer
         # that moves with the model and that an exported program holds
         padded = tuple(g + (-g) % w for g, w in zip(self.grid, self.window))

@@ -1,10 +1,11 @@
 """Sliding-window inference over a volume: tile, predict, Gaussian-blend.
 
 Port of the JAX package's ``ops/sliding_window.py`` (the single-device
-``sliding_window_inference``, the shape-bucketed ``SlidingWindowRunner``,
-``predict_labels`` and ``predictive_entropy``). The host-side tile grid is
-the same code; the blend runs eagerly, chunk by chunk, adding each tile's
-weighted logits into f32 accumulators in place.
+``sliding_window_inference``, the mesh-parallel
+``sharded_sliding_window_inference``, the shape-bucketed
+``SlidingWindowRunner``, ``predict_labels`` and ``predictive_entropy``). The
+host-side tile grid is the same code; the blend runs eagerly, chunk by
+chunk, adding each tile's weighted logits into f32 accumulators in place.
 
 Tiling contract (MONAI-compatible):
   interval_i = int(roi_i * (1 - overlap))   (roi_i if interval would be 0)
@@ -22,6 +23,7 @@ from typing import Callable, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 
 def _scan_starts(dim: int, roi: int, overlap: float) -> list:
@@ -257,18 +259,65 @@ def _blend(
     roi_size: Tuple[int, int, int],
     num_classes: int,
     mode: str,
+    mesh=None,
+    axis_name: str = "data",
 ) -> torch.Tensor:
     """Blended logits of one ``[H, W, D, C]`` volume over a tile grid of its
-    ROI-padded shape: pad, accumulate the chunks, normalise, crop."""
+    ROI-padded shape: pad, accumulate the chunks (with a ``mesh``, this
+    rank's block of them, then the sum over the ranks), normalise, crop."""
     h, w, d, _ = volume.shape
     H, W, D = _padded_shape((h, w, d), roi_size)
     vol = torch.nn.functional.pad(volume, (0, 0, 0, D - d, 0, W - w, 0, H - h))
     weight4 = torch.from_numpy(_blend_weight(roi_size, mode)).to(volume.device)
+    if mesh is not None:
+        # this rank's contiguous block of the chunks (the JAX shard_map's
+        # P(axis_name) over the chunk dim), then the sum over the ranks
+        size = mesh.shape[axis_name]
+        per = starts_np.shape[0] // size
+        r = mesh.axis_rank(axis_name)
+        starts_np, valid_np = starts_np[r * per:(r + 1) * per], valid_np[r * per:(r + 1) * per]
     acc, wacc = _sw_accumulate(
         vol, starts_np, valid_np, predict_fn, roi_size, num_classes, weight4
     )
+    if mesh is not None and mesh.shape[axis_name] > 1:
+        group = mesh.group(axis_name)
+        dist.all_reduce(acc, group=group)
+        dist.all_reduce(wacc, group=group)
     acc.div_(wacc)
     return acc[:h, :w, :d, :]
+
+
+@torch.no_grad()
+def sharded_sliding_window_inference(
+    volume: torch.Tensor,
+    predict_fn: Callable[[torch.Tensor], torch.Tensor],
+    roi_size: Tuple[int, int, int],
+    num_classes: int,
+    mesh,
+    axis_name: str = "data",
+    overlap: float = 0.5,
+    sw_batch_size: int = 4,
+    mode: str = "gaussian",
+) -> torch.Tensor:
+    """Mesh-parallel sliding window: tile chunks split over the ranks of
+    ``axis_name``.
+
+    The chunk count is rounded up to a multiple of the axis size; each rank
+    runs its contiguous block of chunks into a full-volume ``(acc, wacc)``
+    pair of its own, and an ``all_reduce`` of both merges them. Gaussian
+    blending is a weighted sum, so the merged logits equal the one-rank
+    logits up to f32 summation order (bit for bit at one rank). Every rank
+    must call it with the same volume; every rank gets the logits.
+
+    Same contract as :func:`sliding_window_inference` for a single volume
+    ``[H, W, D, C]``.
+    """
+    roi_size = tuple(int(r) for r in roi_size)
+    starts_np, valid_np = make_tile_grid(
+        _padded_shape(volume.shape[:3], roi_size), roi_size, overlap, sw_batch_size,
+        chunk_multiple=int(mesh.shape[axis_name]))
+    return _blend(volume, predict_fn, starts_np, valid_np, roi_size, num_classes, mode,
+                  mesh=mesh, axis_name=axis_name)
 
 
 def bucket_shape(
@@ -304,8 +353,10 @@ class SlidingWindowRunner:
     channels, chunks) keys seen, the programs the JAX runner would hold.
 
     ``predict_fn(params, patches)`` maps ``[n, *roi, C]`` patches to logits
-    with the given weights. ``mesh`` (tile chunks over devices) belongs to
-    the multi-device slice and raises.
+    with the given weights. With a ``mesh`` the chunk count is rounded up to
+    a multiple of its ``axis_name`` size and the chunks are split over the
+    ranks (:func:`sharded_sliding_window_inference`); every rank must call
+    it with the same volume.
     """
 
     def __init__(
@@ -319,10 +370,6 @@ class SlidingWindowRunner:
         mesh=None,
         axis_name: str = "data",
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "SlidingWindowRunner over a device mesh is not ported to the PyTorch package "
-                "yet; it comes with the multi-device slice")
         self.predict_fn = predict_fn
         self.roi_size = tuple(int(r) for r in roi_size)
         self.num_classes = int(num_classes)
@@ -334,20 +381,28 @@ class SlidingWindowRunner:
             sw_batch_size if isinstance(sw_batch_size, str) else int(sw_batch_size)
         )
         self.mode = str(mode)
+        if mesh is not None:
+            mesh.group(axis_name)  # a tensor-parallel mesh raises here
+        self.mesh = mesh
         self.axis_name = axis_name
         self._keys = set()
+
+    def _chunk_multiple(self) -> int:
+        return int(self.mesh.shape[self.axis_name]) if self.mesh is not None else 1
 
     def grid(self, shape: Tuple[int, int, int]) -> Tuple[np.ndarray, np.ndarray, tuple]:
         """The tile grid ``(starts, valid)`` of a volume of ``shape`` and its
         bucket key: starts from the original shape, chunk size and count
         from the bucket."""
         bucket = bucket_shape(shape, self.roi_size, self.overlap)
-        sw = resolve_sw_batch(self._sw_spec, bucket, self.roi_size, self.overlap)
+        cm = self._chunk_multiple()
+        sw = resolve_sw_batch(self._sw_spec, bucket, self.roi_size, self.overlap,
+                              chunk_multiple=cm)
         b_starts, _ = make_tile_grid(bucket, self.roi_size, self.overlap, sw)
-        n_chunks = b_starts.shape[0]
+        n_chunks = int(math.ceil(b_starts.shape[0] / cm)) * cm
         starts_np, valid_np = make_tile_grid(
             _padded_shape(shape, self.roi_size), self.roi_size, self.overlap, sw,
-            min_chunks=n_chunks,
+            min_chunks=n_chunks, chunk_multiple=cm,
         )
         if starts_np.shape[0] != n_chunks:
             raise AssertionError(
@@ -362,7 +417,8 @@ class SlidingWindowRunner:
         starts_np, valid_np, (bucket, n_chunks) = self.grid((h, w, d))
         self._keys.add((bucket, c, n_chunks))
         return _blend(volume, lambda p: self.predict_fn(params, p), starts_np, valid_np,
-                      self.roi_size, self.num_classes, self.mode)
+                      self.roi_size, self.num_classes, self.mode, mesh=self.mesh,
+                      axis_name=self.axis_name)
 
     @property
     def num_compiled(self) -> int:

@@ -1,0 +1,342 @@
+"""Process meshes and data-parallel helpers (port of the JAX package's
+``parallel/mesh.py``).
+
+A mesh here is a ``torch.distributed`` process group with one rank per
+device, where JAX holds every device in one process:
+
+- ``make_mesh`` lays the ranks out as a 2D ``(data, model)`` mesh by JAX's
+  rule (``parallel.mesh.data: -1`` takes every rank left) with JAX's errors;
+- a batch is split over ``data`` in contiguous blocks of rows, rank order
+  (``batch_rows``); the JAX package lets
+  GSPMD insert the gradient and statistic reductions, the port issues them
+  itself (``all_reduce_sum``, ``all_gather_cat``, which are autograd-aware);
+- ZeRO-1 (``zero1_spec``, ``Zero1Optimizer``): each rank keeps and updates
+  one slice of every optimiser-state leaf along the leaf's largest dim that
+  divides the data axis, then gathers the parameters.
+
+NCCL serves CUDA ranks and gloo CPU ranks. gloo carries only ``all_reduce``
+and ``broadcast`` for CUDA tensors: where a collective of CUDA tensors runs
+on a gloo group (two ranks sharing one card), ``all_gather_cat`` and the
+ring's exchange stage the tensors through the host, for that backend only.
+
+While a batch is split over the ranks, ``rows`` is active: batch norm then
+reduces its statistics over the global batch, dropout draws the global
+batch's mask and keeps the rank's rows, and ring attention gathers the batch
+before it shards the tokens. Ring attention runs only there or under
+``same_input`` (every rank holds the same batch): elsewhere the ranks may hold
+different tiles or cases, and their tokens must not meet in one ring.
+"""
+
+from __future__ import annotations
+
+import contextlib
+from typing import Any, Callable, Dict, Iterable, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+AXES = ("data", "model")
+
+
+def world() -> Tuple[int, int]:
+    """``(rank, world size)`` of the default process group, ``(0, 1)``
+    without one."""
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
+
+
+class DeviceMesh:
+    """The ranks of a job laid out as a ``(data, model)`` grid. ``shape`` is
+    ``{"data": d, "model": m}`` as JAX's ``Mesh.shape``; ``devices`` the rank
+    grid. The data axis's process group is the default group (model == 1:
+    tensor parallelism is refused by the model builders)."""
+
+    def __init__(self, devices: np.ndarray):
+        self.devices = np.asarray(devices)
+        self.shape = dict(zip(AXES, self.devices.shape))
+
+    def group(self, axis: str = "data"):
+        if axis != "data" or self.shape["model"] != 1:
+            raise NotImplementedError(
+                "a mesh axis other than data, or a model axis > 1 (tensor parallelism), is not "
+                "ported to the PyTorch package yet")
+        return dist.group.WORLD
+
+    def axis_rank(self, axis: str = "data") -> int:
+        """This rank's position along ``axis``."""
+        rank, _ = world()
+        d, m = np.argwhere(self.devices == rank)[0]
+        return int(d if axis == "data" else m)
+
+    def __repr__(self) -> str:
+        return f"DeviceMesh({self.shape})"
+
+
+def make_mesh(config=None, devices: Optional[Sequence[int]] = None) -> DeviceMesh:
+    """The ``(data, model)`` mesh of ``devices`` (the job's ranks by default)
+    from ``parallel.mesh``, by the JAX package's rule and errors."""
+    devices = list(devices if devices is not None else range(world()[1]))
+    n = len(devices)
+    mesh_cfg: Dict[str, Any] = {}
+    if config is not None:
+        mc = config.get("parallel.mesh", {}) or {}
+        mesh_cfg = mc.to_dict() if hasattr(mc, "to_dict") else dict(mc)
+    model = int(mesh_cfg.get("model", 1) or 1)
+    data = int(mesh_cfg.get("data", -1) or -1)
+    if data == -1:
+        if n % model != 0:
+            raise ValueError(f"{n} devices not divisible by model={model}")
+        data = n // model
+    if data * model != n:
+        raise ValueError(f"mesh {data}x{model} != {n} devices; set parallel.mesh.data: -1")
+    return DeviceMesh(np.asarray(devices).reshape(data, model))
+
+
+def zero1_spec(shape, n_shards: int, axis: str = "data") -> tuple:
+    """ZeRO-1 partition spec for one optimiser-state leaf: shard the largest
+    dim divisible by ``n_shards``; replicate (``()``) if none divides.
+    Deterministic from the shape alone. The JAX package returns the same
+    entries as a ``PartitionSpec``."""
+    best = None
+    for i, d in enumerate(shape):
+        if d > 0 and d % n_shards == 0 and (best is None or d > shape[best]):
+            best = i
+    if best is None:
+        return ()
+    spec = [None] * len(shape)
+    spec[best] = axis
+    return tuple(spec)
+
+
+def _spec_dim(spec: tuple, axis: str) -> Optional[int]:
+    return spec.index(axis) if axis in spec else None
+
+
+def batch_rows(n: int, mesh: DeviceMesh) -> Tuple[int, int]:
+    """``(start, count)``: this rank's contiguous block of a batch of ``n``."""
+    size = mesh.shape["data"]
+    if n % size:
+        raise ValueError(f"batch {n} does not divide the mesh data axis ({size})")
+    c = n // size
+    return mesh.axis_rank("data") * c, c
+
+
+# -- the rows of a split batch -------------------------------------------------
+
+_ROWS: Optional[Tuple[int, int, int, DeviceMesh]] = None
+
+
+@contextlib.contextmanager
+def rows(start: int, count: int, total: int, mesh: DeviceMesh):
+    """Within: the tensors on this rank are rows ``[start, start + count)`` of
+    a batch of ``total`` split over ``mesh``'s data axis."""
+    global _ROWS
+    prev, _ROWS = _ROWS, (int(start), int(count), int(total), mesh)
+    try:
+        yield
+    finally:
+        _ROWS = prev
+
+
+def active_rows() -> Optional[Tuple[int, int, int, DeviceMesh]]:
+    """``(start, count, total, mesh)`` while a split batch runs, else None."""
+    return _ROWS
+
+
+_SAME_INPUT = False
+
+
+@contextlib.contextmanager
+def same_input():
+    """Within: every rank holds the same tensors (one replicated batch), so
+    the ranks may split its tokens among them (ring attention)."""
+    global _SAME_INPUT
+    prev, _SAME_INPUT = _SAME_INPUT, True
+    try:
+        yield
+    finally:
+        _SAME_INPUT = prev
+
+
+def ranks_share_batch() -> bool:
+    """True where the ranks are known to compute on one batch: a split batch
+    (``rows``) or a replicated one (``same_input``)."""
+    return _ROWS is not None or _SAME_INPUT
+
+
+def dropout_rows(x: torch.Tensor, p: float, channel: bool) -> Optional[torch.Tensor]:
+    """Dropout of this rank's rows of a split batch as the whole batch would
+    draw it in one process (None outside ``rows``): the mask of the global
+    batch from the step's generator, its rows kept. ``x`` leads with the
+    batch, possibly folded with an inner dim (``B·nW`` windows)."""
+    if _ROWS is None:
+        return None
+    start, count, total, _ = _ROWS
+    f = x.shape[0] // count
+    if channel:
+        shape = (total * f, x.shape[1]) + (1,) * (x.dim() - 2)
+        noise = torch.nn.functional.dropout3d(
+            torch.ones(shape, dtype=x.dtype, device=x.device), p, True)
+    else:
+        noise = torch.nn.functional.dropout(
+            torch.ones((total * f,) + tuple(x.shape[1:]), dtype=x.dtype, device=x.device), p, True)
+    return x * noise[start * f:(start + count) * f]
+
+
+# -- collectives ----------------------------------------------------------------
+
+
+def _staged(group, x: torch.Tensor) -> bool:
+    """gloo moves CUDA tensors only in all_reduce and broadcast."""
+    return x.is_cuda and dist.get_backend(group) == "gloo"
+
+
+def _all_gather(x: torch.Tensor, group) -> List[torch.Tensor]:
+    size = dist.get_world_size(group)
+    if size == 1:
+        return [x]
+    src = x.detach().contiguous()
+    staged = _staged(group, src)
+    if staged:
+        src = src.cpu()
+    parts = [torch.empty_like(src) for _ in range(size)]
+    dist.all_gather(parts, src, group=group)
+    return [t.to(x.device) for t in parts] if staged else parts
+
+
+class _GatherCat(torch.autograd.Function):
+    """``cat`` of every rank's ``x`` along ``dim``; the gradient is the sum of
+    every rank's gradient, this rank's block kept."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group, ctx.n = dim, group, x.shape[dim]
+        return torch.cat(_all_gather(x, group), dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous()
+        if dist.get_world_size(ctx.group) > 1:
+            dist.all_reduce(g, group=ctx.group)
+        r = dist.get_rank(ctx.group)
+        return g.narrow(ctx.dim, r * ctx.n, ctx.n), None, None
+
+
+def all_gather_cat(x: torch.Tensor, dim: int, mesh: DeviceMesh, axis: str = "data") -> torch.Tensor:
+    """Every rank's equal-shaped ``x`` joined along ``dim`` in rank order,
+    differentiable (the backward sums the ranks' gradients)."""
+    return _GatherCat.apply(x, dim, mesh.group(axis))
+
+
+def all_reduce_sum(x: torch.Tensor, mesh: DeviceMesh, axis: str = "data") -> torch.Tensor:
+    """The sum of ``x`` over the ranks, differentiable (the gradient is
+    summed over the ranks in turn)."""
+    from torch.distributed.nn.functional import all_reduce
+
+    return all_reduce(x, group=mesh.group(axis))
+
+
+def all_reduce_(tensors: Iterable[torch.Tensor], mesh: DeviceMesh, axis: str = "data") -> None:
+    """Sum every tensor over the ranks in place, in one collective (one
+    flat buffer per dtype)."""
+    by_dtype: Dict[torch.dtype, List[torch.Tensor]] = {}
+    for t in tensors:
+        by_dtype.setdefault(t.dtype, []).append(t)
+    for ts in by_dtype.values():
+        flat = torch.cat([t.reshape(-1) for t in ts])
+        dist.all_reduce(flat, group=mesh.group(axis))
+        torch._foreach_copy_(ts, [c.view_as(t) for c, t in zip(flat.split([t.numel() for t in ts]),
+                                                                 ts)])
+
+
+# -- ZeRO-1 -----------------------------------------------------------------------
+
+
+class Zero1Optimizer:
+    """ZeRO-1 around a ``ChainedOptimizer``: the moments of every parameter
+    live only as this rank's slice along ``zero1_spec`` of the parameter's
+    shape (the whole tensor where no dim divides the data axis).
+
+    ``step`` slices each parameter and its (already reduced) gradient, runs
+    the inner update on the slices and all-gathers the parameters, so every rank ends with the
+    same parameters as an unsharded optimiser. The update must be elementwise
+    (Adam, AdamW, SGD); clipping uses the global norm it is given.
+    ``state_dict`` gathers the moments into the unsharded optimiser's
+    layout (a collective: every rank calls it); ``load_state_dict`` takes that
+    layout and keeps the rank's slices."""
+
+    def __init__(self, params: Iterable[torch.nn.Parameter], make_inner: Callable, mesh: DeviceMesh,
+                 axis: str = "data"):
+        self.mesh, self.axis = mesh, axis
+        self.full = list(params)
+        n = int(mesh.shape[axis])
+        self.dims = [_spec_dim(zero1_spec(tuple(p.shape), n, axis), axis) for p in self.full]
+        r = mesh.axis_rank(axis)
+        self.shards = []
+        for p, d in zip(self.full, self.dims):
+            if d is None:
+                self.shards.append(p)
+            else:
+                c = p.shape[d] // n
+                self.shards.append(torch.nn.Parameter(p.detach().narrow(d, r * c, c).clone()))
+        self.inner = make_inner(self.shards)
+        self.clip_norm = self.inner.clip_norm
+
+    @property
+    def param_groups(self):
+        return self.inner.param_groups
+
+    def params(self) -> List[torch.Tensor]:
+        return self.full
+
+    def _slice(self, x: torch.Tensor, d: int) -> torch.Tensor:
+        c = x.shape[d] // self.mesh.shape[self.axis]
+        return x.narrow(d, self.mesh.axis_rank(self.axis) * c, c)
+
+    def step(self, grad_norm: Optional[torch.Tensor] = None) -> None:
+        with torch.no_grad():
+            for p, s, d in zip(self.full, self.shards, self.dims):
+                if d is not None:
+                    # the parameters may have been written since the last
+                    # gather (a resume's load_state_dict): slice them anew
+                    s.copy_(self._slice(p, d))
+                    s.grad = None if p.grad is None else self._slice(p.grad, d).contiguous()
+        self.inner.step(grad_norm=grad_norm)
+        with torch.no_grad():
+            for p, s, d in zip(self.full, self.shards, self.dims):
+                if d is not None:
+                    p.copy_(torch.cat(_all_gather(s, self.mesh.group(self.axis)), dim=d))
+
+    def zero_grad(self) -> None:
+        self.inner.zero_grad()
+        for p in self.full:
+            p.grad = None
+
+    def state_dict(self):
+        sd = self.inner.state_dict()
+        group = self.mesh.group(self.axis)
+        state = {}
+        for idx, slot in sd["state"].items():
+            d = self.dims[idx]
+            out = {}
+            for k, v in slot.items():
+                if (d is not None and isinstance(v, torch.Tensor)
+                        and v.shape == self.shards[idx].shape):
+                    v = torch.cat(_all_gather(v, group), dim=d)
+                out[k] = v
+            state[idx] = out
+        return {"state": state, "param_groups": sd["param_groups"]}
+
+    def load_state_dict(self, sd) -> None:
+        state = {}
+        for idx, slot in sd["state"].items():
+            idx = int(idx)
+            d = self.dims[idx]
+            full = self.full[idx].shape
+            state[idx] = {k: (self._slice(v, d).clone() if d is not None
+                              and isinstance(v, torch.Tensor) and v.shape == full else v)
+                          for k, v in slot.items()}
+        self.inner.load_state_dict({"state": state, "param_groups": sd["param_groups"]})
+

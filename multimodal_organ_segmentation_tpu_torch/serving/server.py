@@ -80,6 +80,15 @@ class InferenceService:
             SlidingWindowRunner,
         )
 
+        from multimodal_organ_segmentation_tpu_torch.parallel.mesh import world
+
+        if world()[1] > 1:
+            # the JAX service is one process over its local devices; over
+            # ranks every request would have to be broadcast to every rank
+            raise NotImplementedError(
+                f"serving from a job of {world()[1]} ranks is not ported to the PyTorch "
+                "package yet; it comes with the multi-rank serving slice (ROADMAP A): run the "
+                "service as one process")
         self.config = config
         self.logger = logger
         self.device = resolve_device(device)

@@ -121,7 +121,8 @@ def tune_serving(
             rec: Dict[str, Any] = {"overlap": ov, "sw_batch": sw, "volume_shape": list(vol_shape)}
             runner = SlidingWindowRunner(trainer._predict_fn, roi_size=roi,
                                          num_classes=trainer.num_classes, overlap=ov,
-                                         sw_batch_size=sw, mode=sw_mode)
+                                         sw_batch_size=sw, mode=sw_mode,
+                                         mesh=trainer._inference_mesh())
             # the timed work is the deployed one: the TTA flips and the
             # ensemble softmax average that predict_labels serves
             run_sw = ensemble_run_sw(runner, members)

@@ -9,6 +9,11 @@ train-state tree: ``step``, ``params``, ``opt_state``, ``ema_params``) and
 fields ``step_in_epoch`` and ``key_counter``), so the metadata reads without
 unpickling anything. Loading is tolerant of a missing or extra EMA tree:
 callers inspect ``tree["ema_params"]`` and apply their own policy.
+
+In a job of several ranks every rank holds the same state (a ZeRO-1
+optimiser gathers its moments into the unsharded layout when the tree is
+taken, on every rank), rank 0 alone writes, and a synchronous save ends at a
+barrier of all ranks, so no rank reads a checkpoint before it is on disk.
 """
 
 from __future__ import annotations
@@ -18,7 +23,9 @@ from pathlib import Path
 from typing import Any, Dict, Optional
 
 import torch
+import torch.distributed as dist
 
+from multimodal_organ_segmentation_tpu_torch.parallel.mesh import world
 from multimodal_organ_segmentation_tpu_torch.utils.io import ensure_dir, load_json, save_json
 
 TREE_FILE = "tree.pt"
@@ -47,8 +54,20 @@ def save_checkpoint(
     """Save a tree of tensors + metadata under ``path`` (a directory).
 
     Crash-safe: writes to a sibling temp dir first, then swaps — a kill
-    mid-save never destroys the previous checkpoint.
+    mid-save never destroys the previous checkpoint. In a job of several
+    ranks rank 0 writes and every rank waits for it at a barrier.
     """
+    rank, size = world()
+    try:
+        if rank == 0:
+            _write_checkpoint(state_tree, path, epoch, best_metric, history, **extra)
+    finally:
+        if size > 1:
+            dist.barrier()
+
+
+def _write_checkpoint(state_tree, path, epoch: int = 0, best_metric: float = 0.0,
+                      history: Optional[Dict] = None, **extra) -> None:
     path = Path(path).resolve()
     tmp = path.with_name(path.name + ".tmp")
     if tmp.exists():
@@ -134,7 +153,7 @@ class AsyncCheckpointWriter:
                 args, kwargs = self._pending.pop(key)
                 self._busy = True
             try:
-                save_checkpoint(*args, **kwargs)
+                _write_checkpoint(*args, **kwargs)
             except BaseException as e:  # surfaced on next submit/flush
                 with self._cond:
                     self._error = e
@@ -155,7 +174,10 @@ class AsyncCheckpointWriter:
             raise RuntimeError(f"async checkpoint write failed: {e}") from e
 
     def submit(self, state_tree: Any, path, **meta) -> None:
-        """Snapshot ``state_tree`` to the host and queue the write."""
+        """Snapshot ``state_tree`` to the host and queue the write (rank 0
+        only: the other ranks hold the same state; no barrier)."""
+        if world()[0] != 0:
+            return
         host = to_host(state_tree)
         key = str(Path(path).resolve())
         with self._cond:

@@ -1,5 +1,5 @@
 """Trainer: train/eval steps + host epoch loop (port of the JAX package's
-``train/trainer.py``, single device).
+``train/trainer.py``).
 
 - ``train_step(state, images, labels, key) → (state, metrics)``: gradient
   accumulation over the micro-batches inside the step, gradients summed in
@@ -26,8 +26,17 @@
   (``utils/tensorboard.py``); ``hardware.profile_dir``: a ``torch.profiler``
   trace of epoch ``hardware.profile_epoch``.
 
-Not ported yet, each raising ``NotImplementedError`` that names its slice:
-meshes, ZeRO-1 and multi-process case shards (multi-device slice).
+Multi-device (one process per device, ``parallel/``): with more than one
+rank the trainer builds a ``(data, model)`` process mesh. Each rank takes its
+rows of every micro-batch (or the loader's ``process_shard`` rows), sums its
+micro-batch gradients in f32, and one ``all_reduce`` a step makes the
+gradients and the loss those of the global batch, so ``grad_norm`` and
+``skip_nonfinite`` decide the same on every rank; batch norm and dropout see
+the global batch (``parallel.mesh.rows``). ``parallel.zero1`` keeps each
+rank's slice of the optimiser moments only. Validation shards the batch;
+inference shards the tile chunks (``inference.data_parallel``) or, with
+``case_shard: auto``, the cases, whose native-eval metrics are merged. Rank 0
+alone writes checkpoints, ``metrics.jsonl`` and TensorBoard.
 """
 
 from __future__ import annotations
@@ -45,6 +54,15 @@ import torch
 from torch import nn
 from torch.func import functional_call
 
+from multimodal_organ_segmentation_tpu_torch.parallel.mesh import (
+    all_reduce_,
+    batch_rows,
+    Zero1Optimizer,
+    make_mesh,
+    same_input,
+    world,
+)
+from multimodal_organ_segmentation_tpu_torch.parallel.mesh import rows as split_rows
 from multimodal_organ_segmentation_tpu_torch.models.build import (
     build_model,
     cast_to_compute_dtype,
@@ -75,10 +93,15 @@ from multimodal_organ_segmentation_tpu_torch.utils.prng import KeyStream
 Params = Mapping[str, torch.Tensor]
 
 
-def _later(what: str, slice_name: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to the PyTorch package yet; it comes with the {slice_name} slice"
-    )
+class CaseShard(tuple):
+    """``(pid, nproc)`` cohort shard; ``auto`` records whether it came from
+    the job's ranks (merged across them) or an explicit ``[pid, nproc]``
+    (independent workers, partial results)."""
+
+    def __new__(cls, pid: int, nproc: int, auto: bool = False):
+        obj = super().__new__(cls, (int(pid), int(nproc)))
+        obj.auto = bool(auto)
+        return obj
 
 
 @dataclass
@@ -138,7 +161,7 @@ def _running_buffers(model: nn.Module) -> List[torch.Tensor]:
 
 def make_train_step(
     model: nn.Module, optimizer: ChainedOptimizer, loss_fn: Callable, accum_steps: int,
-    skip_nonfinite: bool = False, ema_decay: Optional[float] = None,
+    skip_nonfinite: bool = False, ema_decay: Optional[float] = None, mesh=None,
 ) -> Callable:
     """Build the train step.
 
@@ -157,8 +180,14 @@ def make_train_step(
     ``key`` (a ``torch.Generator`` from a ``KeyStream``, or None) seeds the
     dropout draws of the step's micro-batches; it is read only when the model
     holds an active dropout.
+    ``mesh`` (data parallelism over its ranks): ``rows=(start, count,
+    total)`` says which rows of a ``total``-row micro-batch this rank holds
+    (None: every rank holds the whole micro-batch); the summed gradients and
+    loss go through one ``all_reduce`` a step and are divided by the data
+    axis, giving every rank the global batch's mean.
     """
     params = [p for p in model.parameters() if p.requires_grad]
+    data = int(mesh.shape["data"]) if mesh is not None else 1
     dropout = _dropout_active(model)
     running = _running_buffers(model) if skip_nonfinite else []
 
@@ -173,7 +202,8 @@ def make_train_step(
             torch.manual_seed(key.initial_seed() + i)
             yield
 
-    def train_step(state: TrainState, images: torch.Tensor, labels: torch.Tensor, key=None):
+    def train_step(state: TrainState, images: torch.Tensor, labels: torch.Tensor, key=None,
+                   rows=None):
         if images.shape[0] != accum_steps:
             raise ValueError(f"train_step: expected {accum_steps} micro-batches, got "
                              f"{images.shape[0]}")
@@ -181,13 +211,18 @@ def make_train_step(
         optimizer.zero_grad()
         running_before = [b.clone() for b in running]
         loss_sum = torch.zeros((), dtype=torch.float32, device=images.device)
+        split = _rows_context(rows, mesh)
         for i in range(accum_steps):
-            with micro_rng(key, i, images.device):
+            with micro_rng(key, i, images.device), split():
                 loss = loss_fn(model(images[i]), labels[i])
                 loss.backward()  # sums into the f32 .grad of the master weights
             loss_sum += loss.detach().float()
         scale = 1.0 / accum_steps
         grads = [p.grad for p in params if p.grad is not None]
+        if data > 1:
+            # one collective a step: the ranks' f32 gradient and loss sums
+            all_reduce_([loss_sum] + grads, mesh)
+            scale /= data
         torch._foreach_mul_(grads, scale)
         gnorm = global_norm(grads)
         metrics = {"loss": loss_sum * scale, "grad_norm": gnorm}
@@ -215,6 +250,17 @@ def make_train_step(
         return state, metrics
 
     return train_step
+
+
+def _rows_context(split, mesh) -> Callable:
+    """A context factory: ``parallel.mesh.rows`` for a split batch;
+    ``parallel.mesh.same_input`` for a batch every rank of a mesh holds whole
+    (the replicate rule of ``Trainer._stack_accum``); else a no-op."""
+    if split is None:
+        if mesh is not None and int(mesh.shape["data"]) > 1:
+            return same_input
+        return contextlib.nullcontext
+    return lambda: split_rows(*split, mesh)
 
 
 def make_eval_step(model: nn.Module, loss_fn: Callable, num_classes: int) -> Callable:
@@ -269,10 +315,6 @@ class Trainer:
         self.logger = logger
         self.train_loader = train_loader
         self.val_loader = val_loader
-        if mesh not in (None, False):
-            raise _later("training on a device mesh", "multi-device")
-        if bool(config.get("parallel.zero1", False)):
-            raise _later("parallel.zero1", "multi-device")
         if device is None:
             if not torch.cuda.is_available():
                 raise RuntimeError(
@@ -280,6 +322,17 @@ class Trainer:
                 )
             device = "cuda"
         self.device = torch.device(device)
+        # mesh=None → auto (one when the job has more than one rank);
+        # mesh=False → no mesh
+        if mesh is False:
+            self.mesh = None
+        else:
+            self.mesh = mesh if mesh is not None else (
+                make_mesh(config) if world()[1] > 1 else None)
+        if self.mesh is not None:
+            self.mesh.group("data")  # a tensor-parallel (model > 1) mesh raises here
+        self._warned_replicate = False
+        self._step_rows = None
 
         self.model = model if model is not None else build_model(
             config, device=self.device, train=True)
@@ -350,7 +403,16 @@ class Trainer:
         pretrained = self.config.get("model.pretrained", None)
         if pretrained and not self._resume_from:
             self._import_pretrained(pretrained)
-        optimizer = make_optimizer(self.config, self.model.parameters())
+        if self._zero1_active():
+            # ZeRO-1: each rank keeps 1/data of the moments (parallel/mesh.py)
+            if str(self.config.get("training.optimizer.name", "adamw")).lower() == "adafactor":
+                raise NotImplementedError(
+                    "parallel.zero1 with adafactor is not ported: its factored moments are not "
+                    "elementwise; use adamw, adam or sgd")
+            optimizer = Zero1Optimizer(
+                self.model.parameters(), lambda ps: make_optimizer(self.config, ps), self.mesh)
+        else:
+            optimizer = make_optimizer(self.config, self.model.parameters())
         ema = self._fresh_ema() if self._ema_decay() is not None else None
         self.state = TrainState(step=0, model=self.model, optimizer=optimizer, ema_params=ema)
         self._train_step = None
@@ -358,6 +420,16 @@ class Trainer:
             self.resume(self._resume_from)
             self._resume_from = None
         return self.state
+
+    def _zero1_active(self) -> bool:
+        """ZeRO-1 optimiser-state sharding: on when ``parallel.zero1`` is set
+        and the mesh has a non-trivial data axis."""
+        return (bool(self.config.get("parallel.zero1", False)) and self.mesh is not None
+                and int(self.mesh.shape["data"]) > 1)
+
+    def _is_writer(self) -> bool:
+        """Rank 0 writes the run's files (every rank holds the same state)."""
+        return world()[0] == 0
 
     def _import_pretrained(self, path) -> None:
         """``model.pretrained``: a reference torch ``.pth`` mapped onto the
@@ -475,7 +547,14 @@ class Trainer:
 
     def _stack_accum(self, batches: List[Dict]) -> Tuple[torch.Tensor, torch.Tensor]:
         """``accum`` loader batches → images ``[accum, micro, H, W, D, C]``
-        and int64 labels ``[accum, micro, H, W, D]`` on the device."""
+        and int64 labels ``[accum, micro, H, W, D]`` on the device.
+
+        On a mesh, this rank's rows of every micro-batch, and
+        ``self._step_rows`` says which (the train step's ``rows``): a loader
+        with a ``process_shard`` already gave only them; otherwise the
+        rank's contiguous block is cut here, or, when the micro-batch does
+        not divide the data axis, every rank keeps the whole micro-batch and
+        a warning says that data parallelism is off."""
 
         def stack(key, dtype):
             vals = [b[key] for b in batches]
@@ -486,7 +565,34 @@ class Trainer:
                 t = t.pin_memory()
             return t.to(self.device, dtype, non_blocking=True)
 
-        return stack("image", torch.float32), stack("label", torch.int64)
+        images, labels = stack("image", torch.float32), stack("label", torch.int64)
+        self._step_rows = None
+        if self.mesh is None or self.mesh.shape["data"] == 1:
+            return images, labels
+        size = self.mesh.shape["data"]
+        if getattr(self.train_loader, "process_shard", None) is not None:
+            # the loader's rows: a contiguous block of each global batch
+            micro = images.shape[1]
+            self._step_rows = (self.mesh.axis_rank("data") * micro, micro, micro * size)
+            return images, labels
+        micro = images.shape[1]
+        if micro % size:
+            if not self._warned_replicate:
+                self._warned_replicate = True
+                msg = (f"microbatch {micro} does not divide the mesh data axis ({size}): "
+                       f"replicating the batch — data parallelism is OFF for this run. Pick a "
+                       f"batch size divisible by {size}.")
+                if self.logger:
+                    self.logger.warning(msg)
+                else:
+                    import warnings
+
+                    warnings.warn(msg)
+            return images, labels
+        start, count = batch_rows(micro, self.mesh)
+        self._step_rows = (start, count, micro)
+        return (images[:, start:start + count].contiguous(),
+                labels[:, start:start + count].contiguous())
 
     # -- loops ------------------------------------------------------------
 
@@ -525,8 +631,10 @@ class Trainer:
         if self._ckpt_async and self._ckpt_writer is None:
             self._ckpt_writer = AsyncCheckpointWriter()
             self.ckpt.writer = self._ckpt_writer
-        self._prune_metrics_stream()
-        tb_writer = self._open_tensorboard()
+        writer = self._is_writer()
+        if writer:
+            self._prune_metrics_stream()
+        tb_writer = self._open_tensorboard() if writer else None
         profile_dir = self.config.get("hardware.profile_dir")
         profile_epoch = int(self.config.get("hardware.profile_epoch", 1))
 
@@ -586,8 +694,9 @@ class Trainer:
                 }
                 if dice_native is not None:
                     rec["val_dice_native"] = _num(dice_native)
-                with open(self.output_dir / "metrics.jsonl", "a") as f:
-                    f.write(json.dumps(rec) + "\n")
+                if writer:
+                    with open(self.output_dir / "metrics.jsonl", "a") as f:
+                        f.write(json.dumps(rec) + "\n")
                 if tb_writer is not None:
                     scalars = {
                         "loss/train": train_loss,
@@ -696,7 +805,7 @@ class Trainer:
             self._train_step = make_train_step(
                 self.model, self.state.optimizer, self.loss_fn, self.accum_steps,
                 skip_nonfinite=bool(self.config.get("training.skip_nonfinite_updates", False)),
-                ema_decay=self._ema_decay(),
+                ema_decay=self._ema_decay(), mesh=self.mesh,
             )
         return self._train_step
 
@@ -735,7 +844,7 @@ class Trainer:
             images, labels = self._stack_accum(group)
             group = []
             self.state, metrics = train_step(
-                self.state, images, labels, self.keys.next()
+                self.state, images, labels, self.keys.next(), rows=self._step_rows
             )
             loss = float(metrics["loss"])
             t_done = time.perf_counter()
@@ -799,10 +908,14 @@ class Trainer:
         total, count = 0.0, 0
         inter = np.zeros(self.num_classes)
         union = np.zeros(self.num_classes)
+        size = self.mesh.shape["data"] if self.mesh is not None else 1
         for batch in device_prefetch(iter(self.val_loader), self.device):
             images = batch["image"].to(torch.float32)
             labels = batch["label"].to(torch.int64)
-            loss, _, i, u = self._eval_step(params, images, labels)
+            if size > 1:
+                loss, i, u = self._sharded_eval(params, images, labels, size)
+            else:
+                loss, _, i, u = self._eval_step(params, images, labels)
             total += float(loss)
             count += 1
             inter += i.double().cpu().numpy()
@@ -815,6 +928,27 @@ class Trainer:
             "dice_per_class": per_class.tolist(),
         }
         return total / max(count, 1), metrics
+
+    def _sharded_eval(self, params, images, labels, size: int):
+        """Sharded validation: the batch zero-padded to a multiple of the
+        data axis, this rank's rows evaluated, and the loss (weighted by the
+        rank's valid rows; the loss is a mean over samples) and the per-class
+        ∩/∪ summed over the ranks: the whole batch's loss and Dice."""
+        b = images.shape[0]
+        bp = -(-b // size) * size
+        if bp != b:
+            pad = lambda t: torch.cat([t, t.new_zeros((bp - b,) + tuple(t.shape[1:]))])
+            images, labels = pad(images), pad(labels)
+        start, n = batch_rows(bp, self.mesh)
+        valid = min(max(b - start, 0), n)
+        with split_rows(start, n, bp, self.mesh):
+            loss, _, i, u = self._eval_step(params, images[start:start + n],
+                                            labels[start:start + n], valid or n)
+        sums = torch.cat([(loss.double() * valid).reshape(1), i.double() * (valid > 0),
+                          u.double() * (valid > 0)])
+        all_reduce_([sums], self.mesh)
+        c = i.numel()
+        return sums[0] / b, sums[1:1 + c], sums[1 + c:]
 
     def evaluate(self) -> Dict[str, Any]:
         loss, metrics = self._validate()
@@ -837,7 +971,9 @@ class Trainer:
         finally:
             self.model.train(was_training)
 
-    def _runner(self):
+    def _runner(self, mesh=None):
+        """The shape-bucketed runner; with a ``mesh`` its tile chunks are
+        split over the mesh's ranks."""
         from multimodal_organ_segmentation_tpu_torch.ops.sliding_window import (
             SlidingWindowRunner,
         )
@@ -851,7 +987,18 @@ class Trainer:
             # int or "auto"/"auto:N": the runner resolves auto per bucket
             sw_batch_size=self.config.get("inference.batch_size", 4),
             mode=str(sw_cfg.get("mode", "gaussian")),
+            mesh=mesh,
         )
+
+    def _inference_mesh(self):
+        """The mesh handed to the sliding-window runner: the trainer's when
+        ``inference.data_parallel`` (default on) and its data axis is
+        non-trivial, else None. One rule for evaluate_native, predict,
+        native validation, serving and the tuner."""
+        if (bool(self.config.get("inference.data_parallel", True)) and self.mesh is not None
+                and self.mesh.shape["data"] > 1):
+            return self.mesh
+        return None
 
     def _inference_members(self) -> List[Optional[Params]]:
         """Weights for inference: None (the model's own, which
@@ -871,14 +1018,15 @@ class Trainer:
             self.logger.info(f"Ensembling {len(members)} checkpoints (softmax average)")
         return members
 
-    def _case_shard(self, key: str = "inference.case_shard") -> Optional[Tuple[int, int]]:
+    def _case_shard(self, key: str = "inference.case_shard") -> Optional[CaseShard]:
         """``(pid, nproc)`` for cohort-level case parallelism in
         :meth:`predict` (``inference.case_shard``) and
         :meth:`evaluate_native` (``evaluation.case_shard``), or None.
 
-        - ``auto`` (default): no shard in one process. A multi-process job
-          (``torch.distributed`` with more than one rank) raises: its shards
-          come with the multi-device slice.
+        - ``auto`` (default): in a job of several ranks each predicts
+          ``sorted(cases)[rank::world]`` (no tile parallelism then: a rank
+          runs its cases on its own device), and native eval merges the ranks' metrics; one
+          process: no shard.
         - ``[pid, nproc]``: explicit, for fleets of independent workers
           (e.g. a job array of single-card hosts); each predicts
           ``sorted(cases)[pid::nproc]`` and its results stay partial.
@@ -889,7 +1037,7 @@ class Trainer:
             pid, nproc = int(val[0]), int(val[1])
             if not 0 <= pid < nproc:
                 raise ValueError(f"bad {key} {list(val)!r}")
-            return (pid, nproc) if nproc > 1 else None
+            return CaseShard(pid, nproc, auto=False) if nproc > 1 else None
         if isinstance(val, bool):
             if not val:
                 return None
@@ -903,10 +1051,8 @@ class Trainer:
                 raise ValueError(
                     f"{key}={val!r}: expected 'auto', a [pid, nproc] pair, or a falsy value"
                 )
-        dist = torch.distributed
-        if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
-            raise _later(f"{key}=auto across {dist.get_world_size()} processes", "multi-device")
-        return None
+        rank, size = world()
+        return CaseShard(rank, size, auto=True) if size > 1 else None
 
     def _native_val_dice(self) -> Optional[float]:
         """Mean foreground Dice of the deployed pipeline (sliding-window
@@ -930,7 +1076,7 @@ class Trainer:
                     self.logger.warning(f"native_val disabled: cannot build val loader ({e})")
                 self.config.set("training.native_val_every", 0)
                 return None
-            self._native_val_runner = self._runner()
+            self._native_val_runner = self._runner(self._inference_mesh())
 
         params = self._infer_params() if self.state.ema_params is not None else None
         dm = DiceMetric(self.num_classes)
@@ -965,10 +1111,17 @@ class Trainer:
         if self.state is None:
             self.init_state()
 
-        # cohort parallelism (evaluation.case_shard): an explicit [pid, nproc]
-        # worker scores cases[pid::nproc] and reports partial metrics
+        # cohort parallelism (evaluation.case_shard): each rank of a job
+        # scores cases[rank::world] and the metric states are merged across
+        # the ranks afterwards; an explicit [pid, nproc] worker reports
+        # partial metrics (every rank reading one explicit slot would count
+        # each case twice if merged)
         shard = self._case_shard("evaluation.case_shard")
-        runner = self._runner()
+        multiproc = shard is not None and world()[1] > 1
+        merge_across = multiproc and shard.auto
+        # a rank's own cases run on its device alone: the tile chunks are
+        # split over the ranks only when every rank runs every case
+        runner = self._runner(None if multiproc else self._inference_mesh())
         self.freeze_for_inference()  # moments dropped before tile chunks
         members = self._inference_members()
         if len(members) == 1:
@@ -1008,6 +1161,7 @@ class Trainer:
         if self.config.get("evaluation.calibration", False):
             ece = CalibrationError(n_bins=int(self.config.get("evaluation.calibration_bins", 10)))
         per_case: List[Dict[str, Any]] = []
+        case_idx: List[int] = []
         n_cases = 0
         g = 0  # global sample counter across batches (shard ownership)
         smooth = 1e-5
@@ -1087,8 +1241,14 @@ class Trainer:
                     **lesion_row,
                     **({"ece": case_ece} if ece is not None else {}),
                 })
+                case_idx.append(g)
                 n_cases += 1
                 g += 1
+
+        if merge_across:
+            per_case = self._merge_native_metrics(per_case, case_idx, dice, hd, nsd, assd,
+                                                  lesions, ece)
+            n_cases = len(per_case)
 
         metrics: Dict[str, Any] = dice.compute()
         hd_m = hd.compute()
@@ -1104,6 +1264,49 @@ class Trainer:
         metrics["num_cases"] = n_cases
         metrics["per_case"] = per_case
         return metrics
+
+    def _merge_native_metrics(self, per_case, case_idx, dice, hd, nsd, assd, lesions, ece):
+        """Every rank's streaming metric states and per-case rows, gathered
+        (``allgather_payloads``) and folded into this rank's metrics, rows
+        in global case order: every rank ends with the whole cohort's."""
+        from multimodal_organ_segmentation_tpu_torch.parallel.multihost import allgather_payloads
+
+        payload = {
+            "rows": per_case, "idx": case_idx,
+            "dice": [dice.intersection.tolist(), dice.union.tolist(), int(dice.count)],
+            "hd": [float(d) for d in hd.distances],
+            "nsd": [[float(v) for v in sc] for sc in nsd._scores],
+            "assd": [[float(v) for v in sc] for sc in assd._scores],
+            "les": ([list(lesions._tp), list(lesions._fp), list(lesions._fn)]
+                    if lesions is not None else None),
+            "ece": ([ece.count.tolist(), ece.conf_sum.tolist(), ece.correct_sum.tolist()]
+                    if ece is not None else None),
+        }
+        parts = allgather_payloads(payload)
+        for m in (dice, hd, nsd, assd, lesions, ece):
+            if m is not None:
+                m.reset()
+        indexed = []
+        for part in parts:
+            dice.intersection += np.asarray(part["dice"][0], np.float64)
+            dice.union += np.asarray(part["dice"][1], np.float64)
+            dice.count += int(part["dice"][2])
+            hd.distances.extend(part["hd"])
+            for c in range(self.num_classes):
+                nsd._scores[c].extend(part["nsd"][c])
+                assd._scores[c].extend(part["assd"][c])
+            if lesions is not None:
+                for c in range(self.num_classes):
+                    lesions._tp[c] += int(part["les"][0][c])
+                    lesions._fp[c] += int(part["les"][1][c])
+                    lesions._fn[c] += int(part["les"][2][c])
+            if ece is not None:
+                ece.count += np.asarray(part["ece"][0], np.float64)
+                ece.conf_sum += np.asarray(part["ece"][1], np.float64)
+                ece.correct_sum += np.asarray(part["ece"][2], np.float64)
+            indexed.extend(zip(part["idx"], part["rows"]))
+        indexed.sort(key=lambda t: t[0])
+        return [r for _, r in indexed]
 
     def _discover_cases(self, input_path) -> Dict[str, Dict[str, Path]]:
         """{case_id: {modality: path}} over {input}/{mod.lower()}/*.nii[.gz];
@@ -1164,8 +1367,11 @@ class Trainer:
         members = self._inference_members()
 
         # the runner's logits equal the per-shape sliding window's, so
-        # inference.shape_bucketing has nothing to choose here and is ignored
-        runner = self._runner()
+        # inference.shape_bucketing has nothing to choose here and is ignored;
+        # with a mesh (inference.data_parallel) the tile chunks are split over
+        # the ranks, unless the ranks hold different cases
+        runner = self._runner(None if shard is not None and world()[1] > 1
+                              else self._inference_mesh())
 
         is_ensemble = len(members) > 1
         run_sw = ensemble_run_sw(runner, members)
@@ -1242,7 +1448,10 @@ class Trainer:
                 # otherwise queue every pending mask in RAM
                 if len(write_futures) >= 2:
                     write_futures.pop(0).result()
-                write_futures.append(writer.submit(_write))
+                # ranks that share the cases (tile chunks split over them)
+                # hold the same mask: rank 0 writes it
+                if shard is not None or self._is_writer():
+                    write_futures.append(writer.submit(_write))
                 written.append(str(out_file))
             for f in write_futures:
                 f.result()  # surface write errors; all masks on disk past here

@@ -264,8 +264,8 @@ def deep_supervision(config) -> bool:
 
 
 def refuse_tensor_parallel(config) -> None:
-    """Tensor parallelism belongs to the multi-device slice."""
+    """Tensor parallelism is left out of the multi-device slice."""
     if config_tp_axis(config):
         raise NotImplementedError(
             "parallel.tp_axis / parallel.mesh.model > 1 (tensor parallelism) is not ported to "
-            "the PyTorch package yet; it comes with the multi-device slice")
+            "the PyTorch package yet; it comes after the multi-device slice (ROADMAP A)")

@@ -1,0 +1,460 @@
+"""The port's multi-device layer in spawned gloo process groups, against the
+JAX package on the suite's host devices.
+
+Each spawn runs ``tests/torch_dist_worker.py`` once per rank (rendezvous
+through a file under ``tmp_path``, so xdist workers never race for a TCP
+port) and runs several checks to pay for the start once; each has its own
+timeout. The JAX side runs in this process on a 2- or 4-device mesh of the
+8 host devices, one reference run per check. Weights come from
+``seeded_variables`` through ``convert.params_from_jax``; inputs from numpy
+seeds. On the CPU the port's kernels take their plain versions.
+
+Tolerances: the ring's forward 2e-5 against JAX's ring, its q/k/v gradients
+1e-4 against dense attention's; the tile-sharded sliding window 1e-5 against
+the port's one-process sliding window (the same f32 blend summed in another
+order) and against JAX's with a pointwise model both compute alike (the
+blend alone), and 1e-4 against the JAX runner on the mesh with the tiny
+SwinUNETR (JAX's runner with a mesh and its ``sharded_sliding_window_inference``
+are one ``shard_map`` body): the model alone differs from JAX's by 2.7e-5
+on one 32³ tile (logits up to 6.1 in magnitude; f32 sums in another order
+through four Swin stages), so the windows cannot meet 1e-5 there; the
+DualEncoder's logits through the ring 1e-4, and 1e-5 against the one-process
+DualEncoder where the ranks hold other tiles or cases (the ring falls back);
+its train step on a batch every rank holds whole (through the ring) 1e-4
+from the one-process step, loss and ``grad_norm``;
+three data-parallel AdamW steps: loss 1e-4,
+``grad_norm`` 1e-3 relative, running statistics 1e-5; ZeRO-1's parameters
+1e-6 from the replicated run's; native eval's merged metrics 1e-6.
+"""
+
+import csv
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+import jax
+import jax.numpy as jnp
+from jax.sharding import NamedSharding, PartitionSpec as P
+
+from multimodal_organ_segmentation_tpu.models import dual_encoder as jde
+from multimodal_organ_segmentation_tpu.models import swin_unetr as jswin
+from multimodal_organ_segmentation_tpu.models import unet3d as junet
+from multimodal_organ_segmentation_tpu.ops import postprocess as jpp
+from multimodal_organ_segmentation_tpu.ops import sliding_window as jsw
+from multimodal_organ_segmentation_tpu.parallel.mesh import make_mesh as jmake_mesh
+from multimodal_organ_segmentation_tpu.parallel.ring_attention import ring_attention as jring
+from multimodal_organ_segmentation_tpu.train import metrics as jm
+from multimodal_organ_segmentation_tpu.utils.config import ConfigNode as JConfig
+from multimodal_organ_segmentation_tpu_torch import cli
+from multimodal_organ_segmentation_tpu_torch.data.synthetic import synthetic_volume
+from multimodal_organ_segmentation_tpu_torch.models import convert
+from multimodal_organ_segmentation_tpu_torch.ops import sliding_window as tsw
+from multimodal_organ_segmentation_tpu_torch.parallel.mesh import zero1_spec
+from multimodal_organ_segmentation_tpu_torch.train.trainer import Trainer
+from multimodal_organ_segmentation_tpu_torch.utils.io import load_nifti, save_nifti
+from tests.torch_port_utils import jax_train_steps, no_tf32, seeded_variables
+from tests.torch_port_utils import _one_thread  # noqa: F401
+
+REPO = Path(__file__).resolve().parents[1]
+SPAWN_TIMEOUT = 120
+RING_TOL, RING_GRAD_TOL = 2e-5, 1e-4
+BLEND_TOL, SLICE_TOL, MODEL_TOL = 1e-5, 1e-4, 1e-4
+LOSS_TOL, GNORM_RTOL, STATS_TOL, ZERO1_TOL, METRIC_TOL = 1e-4, 1e-3, 1e-5, 1e-6, 1e-6
+K, MICRO = 3, 4  # three steps of a global micro-batch of 4, accumulation 1
+CASES = {"case_a": (20, 18, 22), "case_b": (18, 20, 17), "case_c": (22, 19, 20)}
+AFFINE = np.diag([1.5, 1.2, 2.0, 1.0])
+
+
+def start(task: str, world: int, work: Path, inputs: dict) -> list:
+    """Start ``task`` in a gloo group of ``world`` worker processes."""
+    work.mkdir(parents=True, exist_ok=True)
+    torch.save(inputs, work / "inputs.pt")
+    env = {**os.environ, "OMP_NUM_THREADS": "1"}
+    return [subprocess.Popen(
+        [sys.executable, "-m", "tests.torch_dist_worker", task, str(r), str(world),
+         str(work / "rendezvous"), str(work)],
+        cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(world)]
+
+
+def join(procs: list, work: Path) -> list:
+    """Wait for the workers (each within ``SPAWN_TIMEOUT``); each rank's
+    results."""
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=SPAWN_TIMEOUT)[0])
+    finally:
+        for p in procs:
+            p.kill()
+    for p, log in zip(procs, logs):
+        assert p.returncode == 0, log[-4000:]
+    return [torch.load(work / f"rank{r}.pt", weights_only=False) for r in range(len(procs))]
+
+
+def _ring_inputs(seed, world):
+    rng = np.random.default_rng(seed)
+    return {n: rng.standard_normal((2, 24 * world, 2, 8)).astype(np.float32)
+            for n in ("q", "k", "v", "do")}
+
+
+def _ring_reference(inp, world):
+    """JAX's ring on a ``world``-device mesh, and the q/k/v gradients of
+    dense attention."""
+    mesh = jmake_mesh(None, jax.devices()[:world])
+    q, k, v, do = (jnp.asarray(inp[n]) for n in ("q", "k", "v", "do"))
+    out = jring(q, k, v, mesh)
+
+    def dense(q, k, v):
+        s = jnp.einsum("bnhd,bmhd->bhnm", q, k) * q.shape[-1] ** -0.5
+        return jnp.einsum("bhnm,bmhd->bnhd", jax.nn.softmax(s, axis=-1), v)
+
+    _, vjp = jax.vjp(dense, q, k, v)
+    return np.asarray(out), [np.asarray(g) for g in vjp(do)]
+
+
+def _check_ring(ranks, ref):
+    out, grads = ref
+    for r in ranks:
+        np.testing.assert_allclose(r["ring"]["out"], out, rtol=0, atol=RING_TOL)
+        for g, want in zip(r["ring"]["grads"], grads):
+            np.testing.assert_allclose(g, want, rtol=0, atol=RING_GRAD_TOL)
+
+
+# -- the references ------------------------------------------------------------
+
+def _swin_cfg():
+    return {"experiment": {"seed": 0}, "data": {"modalities": ["CT", "PET"]},
+            "model": {"name": "swin_unetr", "in_channels": 2, "out_channels": 4,
+                      "backbone": {"img_size": [32, 32, 32], "feature_size": 12,
+                                   "depths": [1, 1, 1, 1], "num_heads": [3, 6, 12, 24],
+                                   "window_size": [4, 4, 4], "scan_blocks": False},
+                      "fusion": {"type": "cross_attention", "stages": [1, 2, 3]},
+                      "head": {"type": "conv", "dropout": 0.0}},
+            "hardware": {"mixed_precision": "fp32"}}
+
+
+def _unet_cfg(root, norm="batch", dropout=0.0):
+    return {"experiment": {"name": "bn", "seed": 0, "output_dir": str(root / "out")},
+            "data": {"modalities": ["CT", "PET"], "data_root": str(root / "data"),
+                     "augmentation": {"enabled": False}},
+            "model": {"name": "unet3d", "in_channels": 2, "out_channels": 4,
+                      "backbone": {"features": [4, 8], "img_size": [16, 16, 16], "norm": norm},
+                      "head": {"type": "conv", "dropout": dropout}},
+            "training": {"batch_size": MICRO, "accumulation_steps": 1,
+                         "optimizer": {"name": "adamw", "lr": 1e-4, "weight_decay": 1e-5},
+                         "loss": {"name": "dice_ce", "dice_weight": 0.5, "ce_weight": 0.5}},
+            "inference": {"sliding_window": {"roi_size": [16, 16, 16], "overlap": 0.5},
+                          "batch_size": 2, "normalize": True},
+            "evaluation": {"sliding_window": True},
+            "hardware": {"mixed_precision": "fp32", "num_workers": 0}}
+
+
+def _write_cases(root):
+    """Three labelled cases of one bucket: the inference layout and a val split."""
+    rng = np.random.default_rng(21)
+    images, labels, rows = {}, {}, []
+    for case, shape in CASES.items():
+        image, label = synthetic_volume(shape, 4, rng)
+        images[case], labels[case] = image, label
+        for c, mod in enumerate(("ct", "pet")):
+            save_nifti(image[..., c], root / "input" / mod / f"{case}.nii.gz", affine=AFFINE)
+            save_nifti(image[..., c], root / "data" / "val" / case / f"{mod}.nii.gz", affine=AFFINE)
+        save_nifti(label.astype(np.uint8), root / "data" / "val" / case / "label.nii.gz",
+                   affine=AFFINE)
+        rows.append([case, f"val/{case}/ct.nii.gz", f"val/{case}/pet.nii.gz",
+                     f"val/{case}/label.nii.gz"])
+    with open(root / "data" / "val.csv", "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(["patient_id", "CT", "PET", "label"])
+        w.writerows(rows)
+    return images, labels
+
+
+def _jax_eval_reference(flax_mod, variables, cfg, images, labels, spacing):
+    """The JAX pipeline of native eval on one process: normalise, runner,
+    argmax, postprocess, the metric classes."""
+    from multimodal_organ_segmentation_tpu.data import transforms as jtr
+
+    jcfg = JConfig(cfg)
+    runner = jsw.SlidingWindowRunner(lambda v, p: flax_mod.apply(v, p, train=False),
+                                     (16, 16, 16), 4, overlap=0.5, sw_batch_size=2)
+    dice = jm.DiceMetric(4)
+    hd, nsd, assd = jm.HausdorffDistance(95), jm.SurfaceDice(4, 2.0), jm.AverageSurfaceDistance(4)
+    for case in CASES:
+        norm = jtr.normalize_from_config(jnp.asarray(images[case]), jcfg)
+        logits = runner(norm, variables)
+        mask = jpp.postprocess_from_config(
+            np.asarray(jsw.predict_labels(lambda v: logits, norm)), jcfg)
+        for m in (hd, nsd, assd):
+            m.update(mask[None], labels[case][None], spacing=spacing)
+        dice.update(mask[None], labels[case][None])
+    return {**dice.compute(), "hd95": hd.compute()["hausdorff_distance"], **nsd.compute(),
+            **assd.compute()}
+
+
+def _jax_dp_steps(flax_mod, cfg, variables, images, labels):
+    """The JAX train step with each micro-batch sharded over a 2-device mesh
+    (GSPMD: the global batch's loss, gradients and batch statistics)."""
+    mesh = jmake_mesh(None, jax.devices()[:2])
+    spec = lambda x: NamedSharding(mesh, P(*([None, "data"] + [None] * (x.ndim - 2))))
+    put = lambda x: jax.device_put(x, spec(x))
+    return jax_train_steps(flax_mod, cfg, variables, [put(x) for x in images],
+                           [put(y) for y in labels], 1)
+
+
+def test_ring_attention_on_four_ranks(tmp_path):
+    inp = _ring_inputs(3, 4)
+    procs = start("ring", 4, tmp_path, inp)
+    ref = _ring_reference(inp, 4)
+    _check_ring(join(procs, tmp_path), ref)
+
+
+def test_two_ranks_against_the_jax_mesh(tmp_path):
+    """One gloo group of two ranks: the ring, the tile-sharded sliding window
+    and the runner's mesh, the DualEncoder's ring, data-parallel and ZeRO-1
+    training with resume, dropout rows, ``case_shard: auto`` predict and
+    merged native eval; each against the JAX package on a 2-device mesh (or
+    one process where the JAX package runs one)."""
+    no_tf32()
+    root = tmp_path
+    inp = _ring_inputs(2, 2)
+    mesh = jmake_mesh(None, jax.devices()[:2])
+
+    # the weights and inputs first: the ranks start while the JAX references run
+    scfg = _swin_cfg()  # the tile-sharded sliding window of a tiny cross-attention SwinUNETR
+    sflax = jswin.build_swin_unetr(JConfig(scfg))
+    svars = seeded_variables(sflax, np.zeros((1, 32, 32, 32, 2), np.float32), train=False, seed=7)
+    vol = np.random.default_rng(8).standard_normal((40, 40, 40, 2)).astype(np.float32)
+    sw = ((32, 32, 32), 4, 0.5, 3)  # 8 tiles, chunks of 3: 3 chunks padded to 4
+    blend_w = np.random.default_rng(15).standard_normal((2, 4)).astype(np.float32)
+    inp.update(swin_cfg=scfg, swin_sd=convert.swin_unetr_params_from_jax(svars), swin_volume=vol,
+               swin_sw=sw, blend_w=blend_w)
+    # the DualEncoder with sequence_axis "data": the JAX model on the mesh
+    dcfg = {"experiment": {"seed": 0}, "data": {"modalities": ["CT", "PET"]},
+            "model": {"name": "dual_encoder", "in_channels": 2, "out_channels": 4,
+                      "backbone": {"features": [4, 8, 16], "img_size": [8, 8, 8]},
+                      "fusion": {"type": "cross_attention", "max_tokens": 256},
+                      "head": {"type": "conv", "dropout": 0.0}},
+            "parallel": {"mesh": {"data": -1, "model": 1}, "sequence_axis": "data"},
+            "hardware": {"mixed_precision": "fp32"}}
+    dflax = jde.build_dual_encoder(JConfig({**dcfg, "parallel": {}})).clone(
+        sequence_axis="data", mesh=mesh)
+    x = np.random.default_rng(9).standard_normal((2, 8, 8, 8, 2)).astype(np.float32)
+    x[..., 1] = np.abs(x[..., 1]) * 2.0
+    dvars = seeded_variables(dflax, x, train=False, seed=10)
+    dsd = convert.params_from_jax("dual_encoder", dvars["params"])
+    dvol = np.random.default_rng(14).standard_normal((12, 12, 10, 2)).astype(np.float32)
+    dsw = ((8, 8, 8), 4, 0.5, 3)  # 8 tiles, chunks of 3: 3 chunks padded to 4
+    dy = np.random.default_rng(16).integers(0, 4, size=(2, 8, 8, 8)).astype(np.int64)
+    inp.update(de_cfg=dcfg, de_sd=dsd, de_x=x, de_y=dy, de_volume=dvol, de_sw=dsw)
+    # data-parallel training of a batch-norm UNet3D, and a dropout model
+    bcfg = _unet_cfg(root)
+    bflax = junet.build_unet3d(JConfig(bcfg))
+    bvars = seeded_variables(bflax, np.zeros((1, 16, 16, 16, 2), np.float32), train=False, seed=11)
+    rng = np.random.default_rng(12)
+    images = rng.standard_normal((K, 1, MICRO, 16, 16, 16, 2)).astype(np.float32)
+    labels = rng.integers(0, 4, size=(K, 1, MICRO, 16, 16, 16)).astype(np.int32)
+    bsd = convert.params_from_jax("unet3d", bvars["params"], bvars["batch_stats"])
+    drop_cfg = _unet_cfg(root, norm="instance", dropout=0.3)
+    dropvars = seeded_variables(junet.build_unet3d(JConfig(drop_cfg)),
+                                np.zeros((1, 16, 16, 16, 2), np.float32), train=False, seed=13)
+    inp.update(bn_cfg=bcfg, bn_sd=bsd, images=images, labels=labels, drop_cfg=drop_cfg,
+               drop_sd=convert.params_from_jax("unet3d", dropvars["params"]))
+    # case sharding: predict and native eval over three cases
+    cases, case_labels = _write_cases(root)
+    icfg = {**bcfg, "experiment": {**bcfg["experiment"], "name": "infer"}}
+    inp.update(infer_cfg=icfg, predict_input=str(root / "input"))
+    depcfg = {**bcfg, "experiment": {**bcfg["experiment"], "name": "de_infer"},
+              "model": dcfg["model"], "parallel": dcfg["parallel"],
+              "inference": {**bcfg["inference"], "save_probabilities": True, "batch_size": 4,
+                            "sliding_window": {"roi_size": [8, 8, 8], "overlap": 0.5}}}
+    inp.update(de_predict_cfg=depcfg)
+    procs = start("main", 2, root / "work", inp)
+
+    refs = {"ring": _ring_reference(inp, 2)}
+    apply = lambda v, p: sflax.apply(v, p, train=False)  # noqa: E731
+    # the JAX runner with a mesh is the shard_map of the same body as JAX's
+    # sharded_sliding_window_inference: one reference for both port functions
+    refs["sw"] = np.asarray(jsw.SlidingWindowRunner(
+        apply, sw[0], sw[1], overlap=sw[2], sw_batch_size=sw[3], mesh=mesh)(jnp.asarray(vol), svars))
+    # the blend alone, with a model both sides compute alike
+    refs["blend"] = np.asarray(jsw.sharded_sliding_window_inference(
+        jnp.asarray(vol), lambda p: jnp.tanh(p @ blend_w), sw[0], sw[1], mesh, overlap=sw[2],
+        sw_batch_size=sw[3]))
+    refs["de"] = np.asarray(jax.jit(lambda v, x: dflax.apply(v, x, train=False))(
+        dvars, jnp.asarray(x)))
+    _, jextra, jmetrics = _jax_dp_steps(bflax, bcfg, bvars, images, labels)
+    spacing = tuple(np.sqrt((load_nifti(root / "input" / "ct" / "case_a.nii.gz",
+                                        return_affine=True)[1][:3, :3] ** 2).sum(0)).tolist())
+    refs["eval"] = _jax_eval_reference(bflax, bvars, bcfg, cases, case_labels, spacing)
+    one = Trainer(icfg, device="cpu")
+    one.model.load_state_dict(bsd)
+    one.init_state()
+    one.predict(root / "input", root / "pred_one")
+    # one process: the DualEncoder with the doubled budget's levels and no ring
+    one_model = {**dcfg["model"], "fusion": {"type": "cross_attention", "max_tokens": 512}}
+    one = Trainer({**depcfg, "model": one_model, "parallel": {}}, device="cpu")
+    one.model.load_state_dict(dsd)
+    one.init_state()
+    with torch.no_grad():
+        refs["de_sw"] = tsw.sliding_window_inference(
+            torch.from_numpy(dvol), one.model, dsw[0], dsw[1], dsw[2], dsw[3]).numpy()
+    one.predict(root / "input", root / "de_pred_one")
+
+    ranks = join(procs, root / "work")
+
+    _check_ring(ranks, refs["ring"])
+    for r in ranks:
+        out = r["sliding_window"]
+        np.testing.assert_allclose(out["sharded"], out["single"], rtol=0, atol=BLEND_TOL)
+        np.testing.assert_allclose(out["runner"], out["single"], rtol=0, atol=BLEND_TOL)
+        np.testing.assert_allclose(out["sharded"], refs["sw"], rtol=0, atol=SLICE_TOL)
+        np.testing.assert_allclose(out["runner"], refs["sw"], rtol=0, atol=SLICE_TOL)
+        np.testing.assert_allclose(out["blend"], refs["blend"], rtol=0, atol=BLEND_TOL)
+        # the doubled budget: level 0's 512 tokens attend through the ring
+        de = r["dual_encoder"]
+        assert de["levels"] == [0, 1, 2]
+        np.testing.assert_allclose(de["logits"], refs["de"], rtol=0, atol=MODEL_TOL)
+        # the ring runs where every rank holds the batch, and only there
+        assert de["rings"] == ["logits", "step"], de["rings"]
+        # a batch every rank holds whole trains through the ring
+        for key in ("loss", "grad_norm"):
+            want = de["step_one"][key]
+            assert abs(de["step_ring"][key] - want) <= MODEL_TOL * max(1.0, want), (key, de)
+        # each rank's own tiles: the ring falls back, and says so
+        assert de["fallback_warned"]
+        np.testing.assert_allclose(de["sharded"], refs["de_sw"], rtol=0, atol=BLEND_TOL)
+    # case_shard auto over three cases: each rank's own, through the fallback
+    written = [Path(p).name for r in ranks for p in r["dual_encoder"]["written"]]
+    assert sorted(written) == sorted(f"{c}_pred.nii.gz" for c in CASES)
+    for name in written:
+        case = name[:-len("_pred.nii.gz")]
+        np.testing.assert_allclose(load_nifti(root / "work" / "de_pred" / f"{case}_prob.nii.gz"),
+                                   load_nifti(root / "de_pred_one" / f"{case}_prob.nii.gz"),
+                                   rtol=0, atol=BLEND_TOL)
+        np.testing.assert_array_equal(load_nifti(root / "work" / "de_pred" / name),
+                                      load_nifti(root / "de_pred_one" / name))
+
+    train = [r["train"] for r in ranks]
+    for t in train:
+        assert t["dp_rows"] == MICRO // 2
+        for j, got in zip(jmetrics, t["dp_metrics"]):
+            assert abs(j["loss"] - got["loss"]) <= LOSS_TOL, (jmetrics, t["dp_metrics"])
+            assert abs(j["grad_norm"] - got["grad_norm"]) <= GNORM_RTOL * j["grad_norm"]
+        _, stats = convert.params_to_jax("unet3d", t["dp_state"])
+        for (path, want), (_, got) in zip(jax.tree_util.tree_leaves_with_path(jextra["batch_stats"]),
+                                          jax.tree_util.tree_leaves_with_path(stats)):
+            np.testing.assert_allclose(got, np.asarray(want), rtol=0, atol=STATS_TOL,
+                                       err_msg=jax.tree_util.keystr(path))
+        for k, v in t["dp_state"].items():
+            np.testing.assert_allclose(t["z1_state"][k].numpy(), v.numpy(), rtol=0, atol=ZERO1_TOL,
+                                       err_msg=k)
+        # every moment leaf with a dim divisible by 2 is held half on each
+        # rank, along zero1_spec's dim; the others whole
+        for shape, d, m, v in t["z1_halves"]:
+            spec = zero1_spec(shape, 2)
+            assert d == (spec.index("data") if spec else None), (shape, d)
+            want = list(shape)
+            if d is not None:
+                want[d] //= 2
+            assert list(m) == want == list(v), (shape, d, m)
+        assert sum(d is not None for _, d, _, _ in t["z1_halves"]) >= 10
+        assert t["z1_resume_exact"]
+        assert t["z1_resume_step"]  # the step after a resume updates the resumed weights
+        for a, b in zip(t["drop_dp"], t["drop_one"]):
+            assert abs(a["loss"] - b["loss"]) <= 1e-6 and abs(a["grad_norm"] - b["grad_norm"]) <= \
+                1e-5 * b["grad_norm"], (t["drop_dp"], t["drop_one"])
+    for k in train[0]["dp_state"]:  # the ranks end with the same weights
+        assert torch.equal(train[0]["dp_state"][k], train[1]["dp_state"][k]), k
+        assert torch.equal(train[0]["z1_state"][k], train[1]["z1_state"][k]), k
+
+    # case_shard auto: the ranks' masks are the one-process run's, together
+    written = [Path(p).name for r in ranks for p in r["inference"]["written"]]
+    assert sorted(written) == sorted(f"{c}_pred.nii.gz" for c in CASES)
+    assert ranks[0]["inference"]["written"] != ranks[1]["inference"]["written"]
+    for name in written:
+        got = load_nifti(root / "work" / "pred" / name)
+        np.testing.assert_array_equal(got, load_nifti(root / "pred_one" / name))
+    for r in ranks:
+        m = r["inference"]["metrics"]
+        assert m["num_cases"] == len(CASES)
+        assert [row["case"] for row in m["per_case"]] == list(CASES)
+        for key in ("dice", "hd95", "surface_dice", "assd"):
+            assert abs(m[key] - refs["eval"][key]) <= METRIC_TOL, (key, m[key], refs["eval"][key])
+        np.testing.assert_allclose(m["dice_per_class"], refs["eval"]["dice_per_class"],
+                                   rtol=0, atol=METRIC_TOL)
+
+
+def _torchrun(root, mode, *extra):
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "2",
+           "-m", "multimodal_organ_segmentation_tpu_torch", "--mode", mode,
+           "--config", str(root / "config.yaml"), "--device", "cpu", *extra]
+    proc = subprocess.run(cmd, cwd=REPO, env={**os.environ, "OMP_NUM_THREADS": "1"},
+                          capture_output=True, text=True, timeout=SPAWN_TIMEOUT)
+    assert proc.returncode == 0, (proc.stdout[-3000:], proc.stderr[-3000:])
+
+
+def test_cli_modes_under_torchrun(tmp_path):
+    """``torchrun --nproc_per_node 2 -m <port> --mode train|inference|eval``
+    with gloo on the CPU: two data-parallel steps with a checkpoint from
+    rank 0; inference with the tile chunks split over the ranks (the main
+    path: ``case_shard: false``), its probabilities within 1e-5 of the
+    one-process CLI's and its masks equal wherever the top-2 margin exceeds
+    twice that; native eval with ``case_shard: auto`` written once, its metrics
+    equal to the one-process CLI's."""
+    import json
+
+    import yaml
+
+    root = tmp_path
+    cases, _ = _write_cases(root)
+    for case in list(CASES)[:2]:  # a train split: the first two cases, batch 2
+        for f in ("ct", "pet", "label"):
+            src = root / "data" / "val" / case / f"{f}.nii.gz"
+            (root / "data" / "train" / case).mkdir(parents=True, exist_ok=True)
+            (root / "data" / "train" / case / f"{f}.nii.gz").write_bytes(src.read_bytes())
+    text = (root / "data" / "val.csv").read_text().replace("val/", "train/").splitlines()
+    (root / "data" / "train.csv").write_text("\n".join(text[:3]) + "\n")
+    cfg = _unet_cfg(root, norm="instance")
+    cfg["experiment"].update(name="cli", log_dir=str(root / "logs"))
+    cfg["training"].update(batch_size=2, epochs=1,
+                           scheduler={"name": "cosine", "warmup_epochs": 0})
+    cfg["data"]["augmentation"] = {"enabled": False}
+    cfg["inference"]["save_probabilities"] = True
+    cfg["data"]["test_csv"] = "val.csv"
+    (root / "config.yaml").write_text(yaml.safe_dump(cfg))
+
+    _torchrun(root, "train")
+    ckpt = root / "out" / "cli" / "last"
+    assert (ckpt / "tree.pt").exists()
+    records = (root / "out" / "cli" / "metrics.jsonl").read_text().splitlines()
+    assert len(records) == 1  # rank 0 alone writes
+    _torchrun(root, "inference", "--checkpoint", str(ckpt), "--input", str(root / "input"),
+              "--output", str(root / "pred2"), "--set", "inference.case_shard=false")
+    cli.main(["--mode", "inference", "--config", str(root / "config.yaml"), "--device", "cpu",
+              "--checkpoint", str(ckpt), "--input", str(root / "input"),
+              "--output", str(root / "pred1")])
+    for case in CASES:
+        p2 = load_nifti(root / "pred2" / f"{case}_prob.nii.gz")
+        p1 = load_nifti(root / "pred1" / f"{case}_prob.nii.gz")
+        np.testing.assert_allclose(p2, p1, rtol=0, atol=1e-5)
+        top2 = np.sort(p1, axis=-1)[..., -2:]
+        # a voxel whose top-2 margin exceeds twice the tolerance cannot flip
+        clear = (top2[..., 1] - top2[..., 0]) > 2e-5
+        assert clear.mean() > 0.95
+        m2 = load_nifti(root / "pred2" / f"{case}_pred.nii.gz")
+        m1 = load_nifti(root / "pred1" / f"{case}_pred.nii.gz")
+        np.testing.assert_array_equal(m2[clear], m1[clear])
+    _torchrun(root, "eval", "--checkpoint", str(ckpt), "--output", str(root / "eval2"))
+    cli.main(["--mode", "eval", "--config", str(root / "config.yaml"), "--device", "cpu",
+              "--checkpoint", str(ckpt), "--output", str(root / "eval1")])
+    m2 = json.loads((root / "eval2" / "eval_native.json").read_text())
+    m1 = json.loads((root / "eval1" / "eval_native.json").read_text())
+    assert m2["num_cases"] == m1["num_cases"] == len(CASES)
+    for key in ("dice", "hd95", "surface_dice", "assd"):
+        assert abs(m2[key] - m1[key]) <= METRIC_TOL, (key, m2[key], m1[key])

@@ -10,7 +10,7 @@ attend), logits within 1e-4; train steps as ``tests/test_torch_unet3d.py``.
 
 The JAX DualEncoder is built from configs without ``parallel.sequence_axis``:
 with the suite's 8 host devices such a config would take the ring path,
-which waits for the multi-device slice.
+which ``tests/test_torch_distributed.py`` holds on a 2-device mesh.
 """
 
 import numpy as np
@@ -191,12 +191,25 @@ def test_dual_encoder_deep_supervision_outputs_in_training():
 
 
 def test_sequence_axis_is_dropped_on_one_device_and_refused_across_processes(monkeypatch):
+    """One process drops the axis; across two ranks the ring doubles the
+    token budget (with a budget of 2048, level 0's 4096 tokens then attend,
+    as the JAX builder's mesh makes them); a sequence axis other than data
+    (a model axis) is refused across processes."""
+    from multimodal_organ_segmentation_tpu_torch.parallel import mesh as tmesh
+
     cfg = _config()
     cfg["parallel"] = {"mesh": {"data": -1, "model": 1}, "sequence_axis": "data"}
     model = build_model(cfg, device="cpu")
     assert model.xattn_max_tokens == 512 and hasattr(model, "fusion_xattn1")
-    monkeypatch.setattr(tde, "_world_size", lambda: 2)
-    with pytest.raises(NotImplementedError, match="A24"):
+    cfg["model"]["fusion"]["max_tokens"] = 2048
+    model = build_model(cfg, device="cpu")
+    assert model.mesh is None and not hasattr(model, "fusion_xattn0")
+    monkeypatch.setattr(tmesh, "world", lambda: (0, 2))
+    model = build_model(cfg, device="cpu")
+    assert model.mesh.shape == {"data": 2, "model": 1} and hasattr(model, "fusion_xattn0")
+    assert model.fusion_xattn1.mesh is model.mesh
+    cfg["parallel"] = {"mesh": {"data": 1, "model": 2}, "sequence_axis": "model"}
+    with pytest.raises(NotImplementedError, match="tensor parallelism"):
         build_model(cfg, device="cpu")
 
 

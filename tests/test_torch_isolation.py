@@ -33,7 +33,7 @@ def _port_modules():
 
 def test_port_and_chip_smoke_import_no_jax():
     mods = _port_modules() + ["chip_smoke", "scripts.proto_conv_kernel_torch",
-                              "scripts.ab_paths"]
+                              "scripts.ab_paths", "tests.torch_dist_worker"]
     pkg = "multimodal_organ_segmentation_tpu_torch"
     for new in ("ops.window_attention", "ops.conv3d", "train.losses", "train.optim",
                 "train.metrics", "train.checkpoint", "train.trainer", "data.synthetic",
@@ -49,7 +49,8 @@ def test_port_and_chip_smoke_import_no_jax():
                 "analysis.report", "utils.xlsx", "utils.visualization", "preprocessing",
                 "preprocessing.dicom", "preprocessing.dicom_converter", "preprocessing.normalizer",
                 "preprocessing.suv_calculator", "preprocessing.registration",
-                "preprocessing.resample"):
+                "preprocessing.resample", "parallel", "parallel.mesh", "parallel.multihost",
+                "parallel.ring_attention"):
         assert f"{pkg}.{new}" in mods, new
     code = (
         "import importlib, json, sys\n"

@@ -18,6 +18,7 @@ import jax.numpy as jnp
 
 from multimodal_organ_segmentation_tpu.ops import sliding_window as jsw
 from multimodal_organ_segmentation_tpu_torch.ops import sliding_window as tsw
+from multimodal_organ_segmentation_tpu_torch.parallel.mesh import make_mesh
 from tests.torch_port_utils import _one_thread  # noqa: F401
 
 BLEND_TOL = 1e-6
@@ -67,8 +68,14 @@ def test_runner_counts_buckets_and_refuses_a_mesh():
         runner(torch.zeros((*shape, 2)), w)
     # (30, 30, 30) and (31, 32, 25) share the bucket (32, 32, 32)
     assert runner.num_compiled == 3
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        tsw.SlidingWindowRunner(_t_predict, ROI, CLASSES, mesh=object())
+    # a mesh of one rank splits nothing: the same logits, bit for bit; a
+    # tensor-parallel mesh (model axis > 1) is refused
+    one = tsw.SlidingWindowRunner(_t_predict, ROI, CLASSES, sw_batch_size=4, mesh=make_mesh())
+    vol = torch.from_numpy(np.random.default_rng(3).normal(size=(31, 32, 25, 2)).astype(np.float32))
+    assert torch.equal(one(vol, w), runner(vol, w))
+    with pytest.raises(NotImplementedError, match="tensor parallelism"):
+        tsw.SlidingWindowRunner(_t_predict, ROI, CLASSES,
+                                mesh=make_mesh({"parallel.mesh": {"model": 2}}, devices=[0, 1]))
 
 
 @pytest.mark.parametrize("shape", [(192, 192, 256), (160, 176, 224), (128, 128, 112),

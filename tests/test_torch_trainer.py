@@ -23,6 +23,7 @@ from multimodal_organ_segmentation_tpu_torch.data.dataloader import (
 from multimodal_organ_segmentation_tpu_torch.data.dataset import get_dataset
 from multimodal_organ_segmentation_tpu_torch.data.synthetic import generate_synthetic_dataset
 from multimodal_organ_segmentation_tpu_torch.models.build import build_model
+from multimodal_organ_segmentation_tpu_torch.parallel.mesh import make_mesh
 from multimodal_organ_segmentation_tpu_torch.train.checkpoint import (
     AsyncCheckpointWriter,
     CheckpointPolicy,
@@ -197,21 +198,23 @@ def test_freeze_for_inference_is_the_serving_model(full_run, data_root, tmp_path
 
 
 def test_later_slices_raise_by_name(data_root, tmp_path):
-    """What later slices bring raises by name: meshes, ZeRO-1, multi-process
-    case shards. TensorBoard, epoch profiles and reference-weight import now
+    """What later slices bring raises by name: a tensor-parallel mesh, ZeRO-1
+    with adafactor's factored moments. Meshes, ZeRO-1 and multi-process case
+    shards now run (``tests/test_torch_distributed.py``). TensorBoard, epoch
+    profiles and reference-weight import now
     run (``test_tensorboard_and_profile_of_a_run``,
     ``test_torch_reference_checkpoint.py``); the evaluation slice's parts
     (native eval, predict, native mid-train validation, the transform graph)
     too: ``test_torch_cli.py`` and ``test_torch_transforms.py`` hold them to
     the JAX package."""
     cfg = _config(data_root, tmp_path, "later")
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        Trainer(cfg, device="cpu", mesh=object())
-    for key, value in (("parallel.zero1", True),):
-        bad = _config(data_root, tmp_path, "later2")
-        bad.set(key, value)
-        with pytest.raises(NotImplementedError):
-            Trainer(bad, device="cpu")
+    with pytest.raises(NotImplementedError, match="tensor parallelism"):
+        Trainer(cfg, device="cpu", mesh=make_mesh({"parallel.mesh": {"model": 2}}, devices=[0, 1]))
+    bad = _config(data_root, tmp_path, "later2")
+    bad.set("parallel.zero1", True)
+    bad.set("training.optimizer.name", "adafactor")
+    with pytest.raises(NotImplementedError, match="adafactor"):
+        Trainer(bad, device="cpu", mesh=make_mesh(devices=[0, 1])).init_state()
     # dice_native needs native validation, as in the JAX trainer
     bad = _config(data_root, tmp_path, "later5", checkpoint={"monitor": "dice_native"})
     with pytest.raises(ValueError, match="native_val_every"):

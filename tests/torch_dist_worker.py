@@ -1,0 +1,255 @@
+"""One rank of the gloo process groups that ``tests/test_torch_distributed.py``
+spawns.
+
+    python -m tests.torch_dist_worker TASK RANK WORLD RENDEZVOUS_FILE WORK_DIR
+
+Reads ``WORK_DIR/inputs.pt`` (written by the test: configs, the port's state
+dicts converted from the JAX references' weights, numpy inputs), joins a
+gloo group of WORLD ranks through ``file://RENDEZVOUS_FILE``, runs TASK and
+writes ``WORK_DIR/rank<RANK>.pt``. It imports the port only, never JAX.
+"""
+
+from __future__ import annotations
+
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+
+def _t(a, dtype=torch.float32):
+    return torch.from_numpy(np.asarray(a)).to(dtype)
+
+
+def ring(inp, work):
+    """Ring attention: this rank's token shard forward, gathered, and the
+    q/k/v gradients of ``Σ out·do``, summed over the ranks."""
+    from multimodal_organ_segmentation_tpu_torch.parallel.mesh import all_gather_cat, make_mesh
+    from multimodal_organ_segmentation_tpu_torch.parallel.ring_attention import ring_attention
+
+    mesh = make_mesh()
+    rank, size = dist.get_rank(), dist.get_world_size()
+    q, k, v = (_t(inp[n]).requires_grad_() for n in ("q", "k", "v"))
+    n = q.shape[1] // size
+    sl = slice(rank * n, (rank + 1) * n)
+    out = all_gather_cat(ring_attention(q[:, sl], k[:, sl], v[:, sl], mesh), 1, mesh)
+    # every rank computes the same loss; the gather's backward sums them
+    (out * _t(inp["do"])).sum().div(size).backward()
+    grads = [t.grad.clone() for t in (q, k, v)]
+    for g in grads:
+        dist.all_reduce(g)
+    return {"out": out.detach().numpy(), "grads": [g.numpy() for g in grads]}
+
+
+def sliding_window(inp, work):
+    """The tile-sharded sliding window and the runner with a mesh, and the
+    one-process sliding window, on the tiny cross-attention SwinUNETR."""
+    from multimodal_organ_segmentation_tpu_torch.models.build import build_model
+    from multimodal_organ_segmentation_tpu_torch.ops import sliding_window as tsw
+    from multimodal_organ_segmentation_tpu_torch.parallel.mesh import make_mesh
+
+    cfg = inp["swin_cfg"]
+    model = build_model(cfg, device="cpu")
+    model.load_state_dict(inp["swin_sd"])
+    vol = _t(inp["swin_volume"])
+    roi, classes, ov, sw = inp["swin_sw"]
+    mesh = make_mesh()
+    w = _t(inp["blend_w"])
+    with torch.no_grad():
+        sharded = tsw.sharded_sliding_window_inference(vol, model, roi, classes, mesh,
+                                                       overlap=ov, sw_batch_size=sw)
+        runner = tsw.SlidingWindowRunner(lambda prm, p: model(p), roi, classes, overlap=ov,
+                                         sw_batch_size=sw, mesh=mesh)(vol)
+        single = tsw.sliding_window_inference(vol, model, roi, classes, ov, sw)
+        blend = tsw.sharded_sliding_window_inference(vol, lambda p: torch.tanh(p @ w), roi,
+                                                     classes, mesh, overlap=ov, sw_batch_size=sw)
+    return {"sharded": sharded.numpy(), "runner": runner.numpy(), "single": single.numpy(),
+            "blend": blend.numpy()}
+
+
+def dual_encoder(inp, work):
+    """The DualEncoder built in this group with ``sequence_axis: data``: its
+    attention levels; its logits through the ring on one batch held by
+    every rank; the tile-sharded sliding window, whose ranks hold other
+    tiles (the ring falls back); ``case_shard: auto`` predict of three
+    cases, each rank its own (the ring falls back); and one train step of a
+    batch every rank holds whole (the replicate rule: the ring runs), with
+    the same step of the doubled budget's model in this process alone."""
+    import warnings
+
+    from multimodal_organ_segmentation_tpu_torch.models.build import build_model
+    from multimodal_organ_segmentation_tpu_torch.ops import sliding_window as tsw
+    from multimodal_organ_segmentation_tpu_torch.parallel import ring_attention as ra
+    from multimodal_organ_segmentation_tpu_torch.parallel.mesh import make_mesh, same_input
+    from multimodal_organ_segmentation_tpu_torch.train.losses import get_loss
+    from multimodal_organ_segmentation_tpu_torch.train.optim import make_optimizer
+    from multimodal_organ_segmentation_tpu_torch.train.trainer import (
+        Trainer,
+        TrainState,
+        make_train_step,
+    )
+    from multimodal_organ_segmentation_tpu_torch.utils.config import ConfigNode
+
+    rings = []  # the ring's calls, by phase
+    ring = ra.ring_attention
+    ra.ring_attention = lambda *a, **k: rings.append(phase) or ring(*a, **k)
+    phase = "logits"
+    model = build_model(inp["de_cfg"], device="cpu")
+    model.load_state_dict(inp["de_sd"])
+    roi, classes, ov, sw = inp["de_sw"]
+    with torch.no_grad():
+        with same_input():
+            logits = model(_t(inp["de_x"]))
+        phase = "sharded"
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            sharded = tsw.sharded_sliding_window_inference(
+                _t(inp["de_volume"]), model, roi, classes, make_mesh(), overlap=ov,
+                sw_batch_size=sw)
+    levels = [lv for lv in range(4) if hasattr(model, f"fusion_xattn{lv}")]
+    cfg = {**inp["de_predict_cfg"], "experiment": {**inp["de_predict_cfg"]["experiment"],
+                                                    "output_dir": str(work)}}
+    trainer = Trainer(cfg, device="cpu")
+    trainer.model.load_state_dict(inp["de_sd"])
+    trainer.init_state()
+    phase = "predict"
+    written = trainer.predict(inp["predict_input"], work / "de_pred")
+
+    def step(cfg, mesh):
+        node = ConfigNode({**cfg, "training": {"optimizer": {"name": "adamw", "lr": 1e-4},
+                                               "loss": {"name": "dice_ce"}}})
+        m = build_model(node, device="cpu", train=True)
+        m.load_state_dict(inp["de_sd"])
+        opt = make_optimizer(node, m.parameters())
+        fn = make_train_step(m, opt, get_loss(node), 1, mesh=mesh)
+        _, metrics = fn(TrainState(step=0, model=m, optimizer=opt), _t(inp["de_x"])[None],
+                        torch.from_numpy(inp["de_y"]).long()[None])
+        return {k: float(v) for k, v in metrics.items()}
+
+    one_model = {**inp["de_cfg"]["model"],
+                 "fusion": {**inp["de_cfg"]["model"]["fusion"], "max_tokens": 512}}
+    phase = "step"
+    step_ring = step(inp["de_cfg"], make_mesh())
+    phase = "step_one"
+    step_one = step({**inp["de_cfg"], "model": one_model, "parallel": {}}, None)
+    ra.ring_attention = ring
+    return {"logits": logits.numpy(), "levels": levels, "sharded": sharded.numpy(),
+            "fallback_warned": any("do not hold one batch" in str(w.message) for w in caught),
+            "written": written, "step_ring": step_ring, "step_one": step_one,
+            "rings": sorted(set(rings))}
+
+
+def _trainer(cfg, sd, work, name, **kw):
+    from multimodal_organ_segmentation_tpu_torch.train.trainer import Trainer
+
+    cfg = {**cfg, "experiment": {**cfg["experiment"], "name": name, "output_dir": str(work)}}
+    trainer = Trainer(cfg, device="cpu", **kw)
+    trainer.model.load_state_dict(sd)
+    trainer.init_state()
+    return trainer
+
+
+def _steps(trainer, images, labels):
+    """Each step's global batch through the trainer's own batching (its
+    rows of every micro-batch) and train step."""
+    step = trainer.train_step_fn()
+    metrics = []
+    for i in range(len(images)):
+        batches = [{"image": images[i, a], "label": labels[i, a]} for a in range(images.shape[1])]
+        x, y = trainer._stack_accum(batches)
+        _, m = step(trainer.state, x, y, trainer.keys.next(), rows=trainer._step_rows)
+        metrics.append({k: float(v) for k, v in m.items()})
+    return metrics
+
+
+def train(inp, work):
+    """Data-parallel AdamW steps of the batch-norm UNet3D, replicated and
+    ZeRO-1; ZeRO-1's shard sizes and a save → resume round trip; a dropout
+    model's DP step against the one-process step on the whole batch."""
+    from multimodal_organ_segmentation_tpu_torch.train.checkpoint import save_checkpoint
+
+    cfg, sd, images, labels = inp["bn_cfg"], inp["bn_sd"], inp["images"], inp["labels"]
+    out = {}
+    dp = _trainer(cfg, sd, work, "dp")
+    out["dp_rows"] = dp._stack_accum([{"image": images[0, 0], "label": labels[0, 0]}])[0].shape[1]
+    out["dp_metrics"] = _steps(dp, images, labels)
+    out["dp_state"] = {k: v.clone() for k, v in dp.model.state_dict().items()}
+
+    z1cfg = {**cfg, "parallel": {"zero1": True}}
+    z1 = _trainer(z1cfg, sd, work, "z1")
+    out["z1_metrics"] = _steps(z1, images, labels)
+    out["z1_state"] = {k: v.clone() for k, v in z1.model.state_dict().items()}
+    opt = z1.state.optimizer
+    halves = []
+    for p, shard, d in zip(opt.full, opt.shards, opt.dims):
+        moments = opt.inner.inner.state[shard]
+        halves.append((tuple(p.shape), d, tuple(moments["exp_avg"].shape),
+                       tuple(moments["exp_avg_sq"].shape)))
+    out["z1_halves"] = halves
+    tree = z1.state.tree()  # the moments gathered on every rank
+    save_checkpoint(tree, work / "z1_ckpt", epoch=0)
+    resumed = _trainer(z1cfg, sd, work, "z1r", resume_from=str(work / "z1_ckpt"))
+    tree2 = resumed.state.tree()
+    same = all(torch.equal(tree["params"][k], tree2["params"][k]) for k in tree["params"])
+    for idx, slot in tree["opt_state"]["state"].items():
+        for key, val in slot.items():
+            same = same and torch.equal(torch.as_tensor(val),
+                                        torch.as_tensor(tree2["opt_state"]["state"][idx][key]))
+    local = [tuple(resumed.state.optimizer.inner.inner.state[s]["exp_avg"].shape)
+             for s in resumed.state.optimizer.shards]
+    out["z1_resume_exact"] = bool(same) and local == [h[2] for h in halves]
+    # one more step of the uninterrupted run and of the resumed one
+    _steps(z1, images[:1], labels[:1])
+    _steps(resumed, images[:1], labels[:1])
+    out["z1_resume_step"] = all(torch.equal(v, resumed.model.state_dict()[k])
+                                for k, v in z1.model.state_dict().items())
+
+    dcfg, dsd = inp["drop_cfg"], inp["drop_sd"]
+    drop = _trainer(dcfg, dsd, work, "drop")
+    one = _trainer(dcfg, dsd, work, "drop1", mesh=False)
+    out["drop_dp"] = _steps(drop, images[:1], labels[:1])
+    out["drop_one"] = _steps(one, images[:1], labels[:1])
+    return out
+
+
+def inference(inp, work):
+    """``case_shard: auto`` predict (each rank its cases) and native eval
+    (merged over the ranks) of the batch-norm UNet3D."""
+    from multimodal_organ_segmentation_tpu_torch.data.dataloader import DataLoader
+    from multimodal_organ_segmentation_tpu_torch.data.dataset import get_dataset
+    from multimodal_organ_segmentation_tpu_torch.data.transforms import get_transforms
+    from multimodal_organ_segmentation_tpu_torch.train.trainer import Trainer
+
+    cfg = {**inp["infer_cfg"], "experiment": {**inp["infer_cfg"]["experiment"],
+                                               "output_dir": str(work)}}
+    trainer = Trainer(cfg, device="cpu")
+    trainer.model.load_state_dict(inp["bn_sd"])
+    trainer.init_state()
+    written = trainer.predict(inp["predict_input"], work / "pred")
+    trainer = Trainer(cfg, device="cpu")
+    trainer.model.load_state_dict(inp["bn_sd"])
+    trainer.init_state()
+    ds = get_dataset(trainer.config, split="val",
+                     transform=get_transforms(trainer.config, mode="native", device="cpu"))
+    metrics = trainer.evaluate_native(DataLoader(ds, batch_size=1, shuffle=False, num_workers=0))
+    return {"written": written, "metrics": metrics}
+
+
+TASKS = {"ring": [ring], "main": [ring, sliding_window, dual_encoder, train, inference]}
+
+
+def main(argv) -> None:
+    task, rank, world, rdv, work = argv[0], int(argv[1]), int(argv[2]), argv[3], Path(argv[4])
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{rdv}", rank=rank, world_size=world)
+    inp = torch.load(work / "inputs.pt", weights_only=False)
+    out = {fn.__name__: fn(inp, work) for fn in TASKS[task]}
+    torch.save(out, work / f"rank{rank}.pt")
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])
