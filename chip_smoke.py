@@ -128,8 +128,18 @@ Phases (any failure exits non-zero; no phase's error is caught):
    (a), one data-parallel f32 train step of the flagship (micro-batch 2
    split 1 + 1) within ``STEP_RTOL`` of the one-rank step, the ring at the
    DE128 24³ level against dense attention (f32, forward and backward,
-   within ``TOL``); (c) wall times and each rank's peak memory beside the
-   card's name and power limit. No multi-GPU number: one card.
+   within ``TOL``); in the same two ranks, (c) tensor parallelism on a
+   ``data 1 × model 2`` mesh: a bf16 forward of 2 flagship tiles split
+   against the whole model's, one f32 SGD step split against the whole
+   model's (loss, grad_norm, gathered weights, and the weights' update,
+   which must move a weight by ten times the weights' tolerance), kernels
+   A and B launched on each rank with the plan's head counts; (d) the
+   multi-rank HTTP service on a ``data 2`` mesh: rank 0 answers one
+   request of the [http] case (its checkpoint and case are kept for this)
+   while rank 1 follows, the mask equal to [http]'s outside near-ties of
+   the one-process logits;
+   (e) wall times and each rank's peak memory beside the card's name and
+   power limit. No multi-GPU number: one card.
 
 The line before the last holds one JSON object ``{"kernels": [...]}``;
 the last line is ``{"ok": true, "device": {...}}``. Without a CUDA device
@@ -1815,7 +1825,6 @@ def phase_export(cfg: dict, cfg_path: Path, inputs: dict, served_mask, work: Pat
         raise SystemExit("the monai_compat model did not launch kernel A")
     torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
     del state, x
-    shutil.rmtree(work)
     return add_counts(artifact, monai_launches)
 
 
@@ -2807,6 +2816,247 @@ def phase_preprocess(device: str = "cuda", ct=PREP_CT, pet=PREP_PET, shift_mm=PR
 
 MULTI_RANKS = 2  # processes sharing cuda:0 under gloo in [multi] (b)
 MULTI_RING = (1, 13824, 4, 32)  # the DE128 cross attention's 24³ level: [B, N, H, D]
+MULTI_TP_TILES = 2  # (c)'s bf16 chunk: a 96³×48 f32 activation is ~170 MB a tile through gloo
+TP_STEP_RTOL = 1e-5  # (c)'s f32 step, split against whole: loss and grad_norm, relative
+TP_LR = 0.1  # (c)'s step is SGD: Adam would turn the noise of a zero gradient into ±lr steps
+TP_WEIGHT_TOL = 1e-4  # (c)'s gathered weights after the step, absolute
+TP_UPDATE_RTOL = 1e-3  # (c): ||split - whole|| after the step over the whole step's ||update||
+NEAR_TIE = 1e-4  # (d): voxels whose one-process top-2 logit margin is under it may flip
+
+
+def tp_launches(plan, tiles: int, dtype, window_repeat: int, flash_repeat: int) -> tuple:
+    """Kernel A's and B's launches on one model rank of ``plan`` (a
+    ``TPPlan`` of the flagship) for a batch of ``tiles`` tiles, and the head
+    count of each launch in forward order: a split layer's share, a
+    replicated one's whole."""
+    from multimodal_organ_segmentation_tpu_torch.ops import flash_attention as fa
+    from multimodal_organ_segmentation_tpu_torch.ops import window_attention as wa
+
+    local = {lp.module: lp.local.get("num_heads") for lp in plan.layers if lp.split}
+    counts = {"window_attention": dict.fromkeys(wa.ROUTES, 0),
+              "flash_attention": dict.fromkeys(fa.ROUTES, 0)}
+    heads = {"window_attention": [], "flash_attention": []}
+    depths = FLAGSHIP["model"]["backbone"]["depths"]
+    blocks = iter(f"stage{s}_block{b}" for s, d in enumerate(depths) for b in range(d))
+    for _, bw, h, nw, _, w in window_shapes(tiles):
+        h = local.get(f"{next(blocks)}.attn") or h
+        route = wa.plan(bw, w**3, h, 16, nw or 1, dtype)["route"]
+        counts["window_attention"][route] += window_repeat
+        heads["window_attention"].append(h)
+    for stage, b, n, h, d in flash_shapes(tiles):
+        h = local.get(f"xfuse{stage}") or h
+        counts["flash_attention"][fa.plan(b, n, n, h, d, dtype)["route"]] += flash_repeat
+        heads["flash_attention"].append(h)
+    return counts, heads
+
+
+def _record_heads():
+    """Wrap the models' calls of kernels A and B to record each call's head
+    count; returns (the record, a function that undoes the wrapping)."""
+    from multimodal_organ_segmentation_tpu_torch.models import fusion as tfusion
+    from multimodal_organ_segmentation_tpu_torch.models import swin_unetr as tswin
+
+    seen = {"window_attention": [], "flash_attention": []}
+    wa, mha = tswin.window_mha, tfusion.multi_head_attention
+    tswin.window_mha = lambda q, *a: seen["window_attention"].append(q.shape[2]) or wa(q, *a)
+    tfusion.multi_head_attention = (
+        lambda q, *a, **k: seen["flash_attention"].append(q.shape[2]) or mha(q, *a, **k))
+
+    def undo():
+        tswin.window_mha, tfusion.multi_head_attention = wa, mha
+
+    return seen, undo
+
+
+def multi_tp(rank: int, world: int, device: str = "cuda") -> dict:
+    """[multi] (c) on one rank of a ``world``-rank group: the flagship at full
+    width on a ``data 1 × model world`` mesh. A bf16 forward of a chunk of
+    ``MULTI_TP_TILES`` tiles, split, and (rank 0) the whole model's forward
+    of the same tiles; one f32 SGD step at micro-batch 1, split, its
+    gathered weights, and (rank 0) the whole model's step; each rank's A
+    and B launches and head counts against the plan's; the split layers'
+    parameter bytes a rank."""
+    import torch
+    import torch.distributed as dist
+
+    from multimodal_organ_segmentation_tpu_torch.models.build import build_model
+    from multimodal_organ_segmentation_tpu_torch.ops.flash_attention import flash_attention
+    from multimodal_organ_segmentation_tpu_torch.ops.window_attention import window_mha
+    from multimodal_organ_segmentation_tpu_torch.train.trainer import Trainer
+
+    seed = FLAGSHIP["experiment"]["seed"]
+    tp_mesh = {"data": 1, "model": world}
+    cfg = json.loads(json.dumps(FLAGSHIP))
+    cfg["parallel"]["mesh"] = tp_mesh
+    size = FLAGSHIP["model"]["backbone"]["img_size"]
+    x = torch.from_numpy(np.random.default_rng(seed + 20).standard_normal(
+        (MULTI_TP_TILES, *size, 2), np.float32)).to(device)
+    out = {}
+    t0 = time.perf_counter()
+    seen, undo = _record_heads()
+    try:
+        model = build_model(cfg, device=device)  # bf16, this rank's shard
+        plan = model.tp_plan
+        out["split_bytes"] = sum(v.numel() * v.element_size()
+                                 for k, v in model.state_dict().items() if k in plan.splits)
+        out["all_bytes"] = sum(v.numel() * v.element_size() for v in model.state_dict().values())
+        out["plan"] = plan.describe()
+        reset_launches(window_mha, flash_attention)
+        with torch.no_grad():
+            split = model(x).float()
+        _sync(device)
+        out["fwd_launches"], out["fwd_heads"] = attention_launches(), json.loads(json.dumps(seen))
+        out["fwd_expect"] = tp_launches(plan, MULTI_TP_TILES, torch.bfloat16, 1, 1)
+        del model
+        if rank == 0:
+            whole = build_model(FLAGSHIP, device=device)
+            with torch.no_grad():
+                one = whole(x).float()
+            del whole
+            top2 = one.topk(2, dim=-1).values
+            clear = (top2[..., 0] - top2[..., 1]) > 2 * MODEL_TOL_BF16
+            same = split.argmax(-1) == one.argmax(-1)
+            out["fwd"] = {"err": float((split - one).abs().max()), "scale": float(one.abs().max()),
+                          "agree": float(same.float().mean()),
+                          "agree_clear": bool(same[clear].all()),
+                          "finite": bool(torch.isfinite(split).all())}
+            del one
+        del split
+        out["fwd_s"] = time.perf_counter() - t0
+
+        # one f32 step at micro-batch 1, SGD, TF32 off
+        t1 = time.perf_counter()
+        tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+        tcfg = train_config("fp32", accumulation_steps=1)
+        tcfg["training"]["batch_size"] = 1
+        tcfg["training"]["optimizer"] = {"name": "sgd", "lr": TP_LR, "momentum": 0.9,
+                                         "weight_decay": 0.0}
+        image, label = training_patches(1, seed)[0]
+        batch = [{"image": image[None], "label": label[None]}]
+        steps = {}
+        for name in ("split", "one"):
+            if name == "one" and rank != 0:
+                break
+            run = json.loads(json.dumps(tcfg))
+            run["experiment"]["name"] = f"multi_tp_{name}"
+            if name == "split":
+                run["parallel"]["mesh"] = tp_mesh
+                reset_launches(window_mha, flash_attention)
+                for v in seen.values():
+                    v.clear()
+            trainer = Trainer(run, device=device, mesh=None if name == "split" else False)
+            trainer.init_state()
+            if name == "one":
+                before = {k: v.detach().cpu().clone() for k, v in trainer.model.state_dict().items()}
+            images, labels = trainer._stack_accum(batch)
+            _, metrics = trainer.train_step_fn()(trainer.state, images, labels,
+                                                 trainer.keys.next(), rows=trainer._step_rows)
+            steps[name] = {"loss": float(metrics["loss"]), "grad_norm": float(metrics["grad_norm"])}
+            if name == "split":
+                _sync(device)
+                out["step_launches"] = attention_launches()
+                out["step_heads"] = json.loads(json.dumps(seen))
+                # remat runs each Swin block's forward twice; the fusions once
+                out["step_expect"] = tp_launches(trainer.model.tp_plan, 1, torch.float32, 2, 1)
+                params = trainer.state.tree()["params"]  # gathered over the model group
+                gathered = {k: v.detach().cpu() for k, v in params.items()} if rank == 0 else None
+                del params
+            else:
+                # the split step's error against the whole step's update:
+                # weights left stale by the split step would show here
+                err = moved = err2 = moved2 = 0.0
+                for k, v in trainer.model.state_dict().items():
+                    v = v.detach().cpu().double()
+                    diff, step = gathered[k].double() - v, v - before[k].double()
+                    err, moved = max(err, float(diff.abs().max())), max(moved, float(step.abs().max()))
+                    err2, moved2 = err2 + float((diff**2).sum()), moved2 + float((step**2).sum())
+                out["weights_err"], out["update_max"] = err, moved
+                out["update_rel"] = (err2 / moved2) ** 0.5 if moved2 else float("inf")
+                del before, gathered
+            del trainer, images, labels
+            if device == "cuda":
+                torch.cuda.empty_cache()
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+        out["steps"] = steps
+        out["step_s"] = time.perf_counter() - t1
+    finally:
+        undo()
+    dist.barrier()
+    return out
+
+
+def multi_serve(rank: int, http: dict, device: str = "cuda") -> dict:
+    """[multi] (d) on one rank of a data-parallel group: the flagship
+    service from the [http] phase's checkpoint, rank 0 serving one request
+    of the [http] case over HTTP while the other ranks follow, then its
+    stop; rank 0 compares the mask with the [http] phase's one-process mask
+    outside near-ties of the one-process logits."""
+    import threading
+
+    import torch
+
+    from multimodal_organ_segmentation_tpu_torch.ops.flash_attention import flash_attention
+    from multimodal_organ_segmentation_tpu_torch.ops.postprocess import postprocess_from_config
+    from multimodal_organ_segmentation_tpu_torch.ops.sliding_window import sliding_window_inference
+    from multimodal_organ_segmentation_tpu_torch.ops.window_attention import window_mha
+    from multimodal_organ_segmentation_tpu_torch.serving.server import InferenceService, make_server
+    from multimodal_organ_segmentation_tpu_torch.utils.config import ConfigNode
+    from multimodal_organ_segmentation_tpu_torch.utils.io import load_nifti
+
+    t0 = time.perf_counter()
+    cfg = json.loads(json.dumps(http["cfg"]))
+    service = InferenceService(ConfigNode(cfg), http["ckpt"], device=device)
+    reset_launches(window_mha, flash_attention)
+    out = {"mesh": dict(service.mesh_shape), "build_s": time.perf_counter() - t0}
+    if rank == 0:
+        httpd = make_server(service, port=0)
+        thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+        thread.start()
+        base = f"http://127.0.0.1:{httpd.server_address[1]}"
+        try:
+            out["segment"] = _http(base, "/v1/segment", {
+                "inputs": http["inputs"], "case_id": "multi",
+                "output_dir": str(Path(http["work"]) / "served_multi")})
+            out["stats"] = _http(base, "/v1/stats")[1]
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+            thread.join(timeout=60)
+            service.close()
+        out["launches"] = attention_launches()
+        out["chunks"] = service.runner.grid(tuple(http["volume"]))[0].shape[0]
+        served = Path(http["work"]) / "served_multi" / "multi_pred.nii.gz"
+        mask = load_nifti(served).astype(np.uint8)
+        ref = np.load(http["mask"])
+        # the one-process logits, on this rank alone (no collective)
+        sw = cfg["inference"]["sliding_window"]
+        vol = torch.from_numpy(np.stack([load_nifti(http["inputs"][m])
+                                         for m in cfg["data"]["modalities"]], -1)).to(device)
+        with torch.no_grad():
+            logits = sliding_window_inference(vol, service.runner.predict_fn.__self__.model,
+                                              tuple(sw["roi_size"]), cfg["model"]["out_channels"],
+                                              sw["overlap"], cfg["inference"]["batch_size"],
+                                              sw["mode"])
+            top2 = logits.topk(2, dim=-1).values
+            near = ((top2[..., 0] - top2[..., 1]) < NEAR_TIE).cpu().numpy()
+            own = postprocess_from_config(logits.argmax(-1).cpu().numpy().astype(np.uint8),
+                                          ConfigNode(cfg))
+        differ = mask != ref
+        out["differ"] = int(differ.sum())
+        out["differ_clear"] = int((differ & ~near).sum())
+        out["near"] = int(near.sum())
+        out["differ_own"] = int((mask != own).sum())
+        del vol, logits
+    else:
+        out["passes"] = service.follow()
+        out["launches"] = attention_launches()
+    out["wall_s"] = time.perf_counter() - t0
+    del service
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
 
 
 def _multi_volume():
@@ -2823,12 +3073,14 @@ def _multi_sw():
             FLAGSHIP["inference"]["batch_size"])
 
 
-def multi_rank(rank: int, world: int, rendezvous: str, ref_path: str, out_path: str) -> None:
+def multi_rank(rank: int, world: int, rendezvous: str, ref_path: str, out_path: str,
+               http: dict) -> None:
     """One of the [multi] phase's gloo ranks on cuda:0: the tile-sharded
     flagship volume, one data-parallel f32 train step of the flagship (the
     rank's rows of a micro-batch of 2) and the one-rank step on the whole
-    micro-batch (rank 0), the ring at a DE128 level; results to
-    ``out_path``."""
+    micro-batch (rank 0), the ring at a DE128 level; then (c) tensor
+    parallelism (``multi_tp``) and (d) the multi-rank service
+    (``multi_serve``); results to ``out_path``."""
     import torch
     import torch.distributed as dist
 
@@ -2915,13 +3167,19 @@ def multi_rank(rank: int, world: int, rendezvous: str, ref_path: str, out_path: 
             out["ring_grad_err"] = max(float((gr - t.grad).abs().max())
                                        for gr, t in zip(grads, (q, k, v)))
         out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        del q, k, v, do, ring, grads
+        torch.cuda.empty_cache()
+        dist.barrier()
+
+        out["tp"] = multi_tp(rank, world)
+        out["serve"] = multi_serve(rank, http)
         dist.barrier()
     finally:
         dist.destroy_process_group()
         torch.save(out, out_path)
 
 
-def phase_multi() -> dict:
+def phase_multi(http: dict) -> dict:
     """Multi-device on one card: (a) one NCCL rank on cuda:0 runs
     ``sharded_sliding_window_inference`` and the runner with a mesh over the
     flagship volume at full width, each equal bit for bit to the
@@ -2931,8 +3189,19 @@ def phase_multi() -> dict:
     volume within bf16 ``TOL`` of (a), one data-parallel f32 train step of
     the flagship (micro-batch 2 split 1 + 1) within ``STEP_RTOL`` of the
     one-rank step, the ring at a DE128 level (f32, forward and backward)
-    against dense attention within ``TOL``; (c) wall times and peak memory
-    per rank beside the card's name and power limit. Returns (a)'s launches."""
+    against dense attention within ``TOL``; in the same two gloo ranks, (c)
+    tensor parallelism on a ``data 1 × model 2`` mesh (``multi_tp``: the bf16
+    forward of ``MULTI_TP_TILES`` tiles against the whole model's at the bf16
+    logit check, one f32 SGD step within ``TP_STEP_RTOL`` of the whole
+    model's and its gathered weights within ``TP_WEIGHT_TOL`` and
+    ``TP_UPDATE_RTOL`` of the whole model's update, A and B launched on each
+    rank as the plan says, with its head counts) and (d)
+    the multi-rank service on a ``data 2`` mesh (``multi_serve``: one
+    request of the [http] case, its mask equal to [http]'s outside
+    near-ties, the follower stopped); (e) wall times and peak memory per
+    rank beside the card's name and power limit. ``http`` holds the [http]
+    phase's config, checkpoint, case, mask file and work directory. Returns
+    the launches of (a), (c) and (d) together."""
     import multiprocessing
 
     import torch
@@ -2997,12 +3266,13 @@ def phase_multi() -> dict:
         t0 = time.perf_counter()
         ctx = multiprocessing.get_context("spawn")
         procs = [ctx.Process(target=multi_rank, args=(r, MULTI_RANKS, str(work / "gloo"),
-                                                      str(work / "ref.pt"), str(work / f"r{r}.pt")))
+                                                      str(work / "ref.pt"), str(work / f"r{r}.pt"),
+                                                      http))
                  for r in range(MULTI_RANKS)]
         for proc in procs:
             proc.start()
         for proc in procs:
-            proc.join(timeout=480)
+            proc.join(timeout=600)
         wall_b = time.perf_counter() - t0
         codes = [proc.exitcode for proc in procs]
         for proc in procs:
@@ -3029,14 +3299,104 @@ def phase_multi() -> dict:
         log(f"[multi] (b) ring {list(MULTI_RING)} f32 over {MULTI_RANKS} ranks against dense "
             f"attention: out {r0['ring_err']:.3e}, q/k/v gradients {r0['ring_grad_err']:.3e} "
             f"(tol {TOL['float32']})")
-        log(f"[multi] (c) {smi}; (a) {wall_a:.1f} s, (b) {wall_b:.1f} s")
         if not (r0["volume_err"] <= TOL["bfloat16"] and rel <= STEP_RTOL
                 and [r["dp"]["rows"] for r in ranks] == [1] * MULTI_RANKS
                 and r0["ring_err"] <= TOL["float32"] and r0["ring_grad_err"] <= TOL["float32"]):
             raise SystemExit("[multi] (b) a check of the gloo ranks failed")
+        ok_c = check_multi_tp([r["tp"] for r in ranks])
+        ok_d = check_multi_serve([r["serve"] for r in ranks])
+        tp_s = max(r["tp"]["fwd_s"] + r["tp"]["step_s"] for r in ranks)
+        serve_s = max(r["serve"]["wall_s"] for r in ranks)
+        log(f"[multi] (c) time {tp_s:.1f} s (both ranks; forward, whole forward, split and whole "
+            f"f32 steps)")
+        log(f"[multi] (d) time {serve_s:.1f} s (service builds, one request, the one-process "
+            f"margins)")
+        log(f"[multi] (e) {smi}; (a) {wall_a:.1f} s, (b) to (d) {wall_b:.1f} s")
+        if not ok_c:
+            raise SystemExit("[multi] (c) a tensor-parallel check failed")
+        if not ok_d:
+            raise SystemExit("[multi] (d) a multi-rank serving check failed")
+        launches = add_counts(launches, *[r["tp"]["fwd_launches"] for r in ranks],
+                              *[r["tp"]["step_launches"] for r in ranks],
+                              *[r["serve"]["launches"] for r in ranks])
     finally:
         shutil.rmtree(work, ignore_errors=True)
     return launches
+
+
+def check_multi_tp(ranks: list, device: str = "cuda") -> bool:
+    """Log and hold (c): the split forward within the bf16 logit check of the
+    whole model's, labels equal where the margin is clear; the split f32
+    step's loss and grad_norm within ``TP_STEP_RTOL`` of the whole model's,
+    the gathered weights within ``TP_WEIGHT_TOL`` of its and within
+    ``TP_UPDATE_RTOL`` of its update, which moves a weight by at least ten
+    times ``TP_WEIGHT_TOL``; each rank's launches and
+    head counts as its plan says (A and B all ``mma`` in bf16)."""
+    r0 = ranks[0]
+    f, steps = r0["fwd"], r0["steps"]
+    rel = max(abs(steps["split"][k] - steps["one"][k]) / abs(steps["one"][k])
+              for k in ("loss", "grad_norm"))
+    log(f"[multi] (c) tensor parallelism, mesh data 1 x model {len(ranks)}, flagship fs 48 at "
+        f"full width; plan: " + "; ".join(r0["plan"]))
+    log(f"[multi] (c) split parameters a rank: {r0['split_bytes'] / 2**20:.1f} MiB of "
+        f"{r0['all_bytes'] / 2**20:.1f} MiB bf16 (each split layer's share 1/{len(ranks)})")
+    log(f"[multi] (c) bf16 forward of {MULTI_TP_TILES} tiles, split against whole: max |diff| "
+        f"{f['err']:.3e} (tol {MODEL_TOL_BF16}; largest |logit| {f['scale']:.2f}), label "
+        f"agreement {f['agree']:.6f}, all labels agree where the top-2 margin > "
+        f"{2 * MODEL_TOL_BF16}: {f['agree_clear']}")
+    log(f"[multi] (c) f32 SGD step, micro-batch 1: split loss {steps['split']['loss']:.7f} "
+        f"grad_norm {steps['split']['grad_norm']:.7f}; whole loss {steps['one']['loss']:.7f} "
+        f"grad_norm {steps['one']['grad_norm']:.7f}; max relative difference {rel:.2e} (tol "
+        f"{TP_STEP_RTOL:.0e}); gathered weights max |diff| {r0['weights_err']:.3e} (tol "
+        f"{TP_WEIGHT_TOL:.0e}) while the whole step moved a weight by up to "
+        f"{r0['update_max']:.3e} (at least {10 * TP_WEIGHT_TOL:.0e}); ||split - whole|| / "
+        f"||update|| {r0['update_rel']:.3e} (tol {TP_UPDATE_RTOL:.0e})")
+    ok = (f["finite"] and f["err"] <= MODEL_TOL_BF16 and f["agree_clear"] and rel <= TP_STEP_RTOL
+          and r0["weights_err"] <= TP_WEIGHT_TOL and r0["update_max"] >= 10 * TP_WEIGHT_TOL
+          and r0["update_rel"] <= TP_UPDATE_RTOL)
+    for i, r in enumerate(ranks):
+        for what, launches, expect, heads, repeat in (
+                ("bf16 forward", r["fwd_launches"], r["fwd_expect"], r["fwd_heads"], 1),
+                ("f32 step", r["step_launches"], r["step_expect"], r["step_heads"], 2)):
+            want_counts, want_heads = expect
+            same_heads = (sorted(heads["window_attention"])
+                          == sorted(want_heads["window_attention"] * repeat)
+                          and heads["flash_attention"] == want_heads["flash_attention"])
+            log(f"[multi] (c) rank {i} {what}: kernels {json.dumps(launches)} expected "
+                f"{json.dumps(want_counts)}; heads a launch A {heads['window_attention']} B "
+                f"{heads['flash_attention']}, planned A {want_heads['window_attention']} B "
+                f"{want_heads['flash_attention']}")
+            if device == "cuda":
+                ok = ok and launches == want_counts
+            ok = ok and same_heads
+    return ok
+
+
+def check_multi_serve(ranks: list, device: str = "cuda") -> bool:
+    """Log and hold (d): one 200 answer, the mesh in the stats, the mask equal
+    to [http]'s outside near-ties, the follower stopped after one pass, and
+    each rank's launches half of the request's chunks."""
+    r0 = ranks[0]
+    code, res = r0["segment"]
+    stats = r0["stats"]
+    log(f"[multi] (d) multi-rank service, mesh {r0['mesh']}: /v1/segment {code} load_s "
+        f"{res.get('load_s')} device_s {res.get('device_s')} total_s {res.get('total_s')}; "
+        f"/v1/stats requests {stats.get('requests')} mesh {stats.get('mesh')}; follower passes "
+        f"{[r.get('passes') for r in ranks[1:]]}")
+    log(f"[multi] (d) served mask against the [http] one-process mask: {r0['differ']} voxels "
+        f"differ, {r0['differ_clear']} of them where the one-process top-2 margin >= "
+        f"{NEAR_TIE:.0e}; near-tie voxels (margin < {NEAR_TIE:.0e}): {r0['near']}; against rank 0's own "
+        f"one-process mask: {r0['differ_own']} voxels differ")
+    per_rank = r0["chunks"] // len(ranks)
+    expect = predicted_launches(FLAGSHIP["inference"]["batch_size"], per_rank, per_rank)
+    for i, r in enumerate(ranks):
+        log(f"[multi] (d) rank {i} kernels {json.dumps(r['launches'])} expected "
+            f"{json.dumps(expect)} ({per_rank} of {r0['chunks']} chunks)")
+    ok = (code == 200 and stats.get("requests") == 1 and stats.get("mesh") == r0["mesh"]
+          and r0["differ_clear"] == 0 and all(r.get("passes") == 1 for r in ranks[1:]))
+    if device == "cuda":
+        ok = ok and all(r["launches"] == expect for r in ranks)
+    return ok
 
 
 def phase_models() -> dict:
@@ -3099,6 +3459,10 @@ def main(argv) -> int:
     by_path["tune"] = phase_tune(cfg_path, work)
     torch.cuda.empty_cache()
     by_path["export"] = phase_export(cfg, cfg_path, inputs, served_mask, work)
+    # [multi] (d) serves the [http] checkpoint and case and compares its mask
+    np.save(work / "http_mask.npy", served_mask)
+    http = {"cfg": cfg, "ckpt": str(work / "ckpt"), "inputs": inputs, "volume": list(VOLUME),
+            "mask": str(work / "http_mask.npy"), "work": str(work)}
     torch.cuda.empty_cache()
     by_path["explain"] = phase_explain()
     torch.cuda.empty_cache()
@@ -3106,7 +3470,8 @@ def main(argv) -> int:
     torch.cuda.empty_cache()
     phase_preprocess()
     torch.cuda.empty_cache()
-    by_path["multi"] = phase_multi()
+    by_path["multi"] = phase_multi(http)
+    shutil.rmtree(work)
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     kernels = []
     for name, s in summary.items():

@@ -33,8 +33,14 @@ Several processes, one per device (``parallel.multihost``, default auto)::
 
 The process group starts before anything else (NCCL on the card, where each
 rank takes ``cuda:LOCAL_RANK``; gloo with ``--device cpu``); the trainer then
-splits batches, tile chunks or cases over the ranks, and rank 0 writes the
-metrics, checkpoints and logs (the other ranks log to ``<mode>.rank<k>.log``).
+splits batches, tile chunks or cases over the data axis of its mesh and,
+with ``parallel.mesh.model`` > 1, a SwinUNETR's or UNet3D's layers over the
+model axis (tensor parallelism), and rank 0 writes the metrics, checkpoints
+and logs (the other ranks log to ``<mode>.rank<k>.log``). ``--mode serve``
+under ``torchrun``: rank 0 serves HTTP and broadcasts each request to the
+other ranks, which run the pass with it (``serving/server.py``); ``--mode
+tune`` runs as one process and raises under several ranks
+(``serving/tuner.py::refuse_ranks``).
 """
 
 from __future__ import annotations

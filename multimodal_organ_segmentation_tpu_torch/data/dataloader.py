@@ -308,12 +308,13 @@ def get_dataloader(
         shuffle = is_train
     if drop_last is None:
         drop_last = is_train
-    # a job of several ranks: the TRAIN stream is split by rank (each loads
-    # its rows of every global batch; the trainer knows them from
-    # process_shard). Validation stays whole on every rank.
-    from multimodal_organ_segmentation_tpu_torch.parallel.mesh import world
+    # a job of several ranks: the TRAIN stream is split by the rank's data
+    # index (each loads its rows of every global batch; the ranks of a model
+    # group load the same rows; the trainer knows them from process_shard).
+    # Validation stays whole on every rank.
+    from multimodal_organ_segmentation_tpu_torch.parallel.mesh import data_shard, world
 
-    rank, nproc = world()
+    rank, nproc = data_shard(config) if world()[1] > 1 else (0, 1)
     return DataLoader(
         dataset,
         batch_size=int(config.get("training.batch_size", 2)),

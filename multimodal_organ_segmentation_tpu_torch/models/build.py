@@ -16,6 +16,12 @@ gradients) and takes a ``perturb`` dict in ``forward``; they add no parameter
 or buffer, so ``model.enable_perturb``, which flax needs to create its
 perturbation variables, is accepted and ignored. The explainability code
 names the points as the wrapped flax tree does (``backbone/<point>``).
+
+In a job of several ranks whose config asks for tensor parallelism
+(``parallel.tp_axis``, or ``parallel.mesh.model`` > 1), every rank draws the
+whole model's weights from the same generator and keeps its shard
+(``parallel/tensor_parallel.py::parallelize``). In one process the model is
+built whole, as the JAX model runs unconstrained outside a mesh.
 """
 
 from __future__ import annotations
@@ -34,7 +40,9 @@ from multimodal_organ_segmentation_tpu_torch.models.swin_unetr import (
     build_swin_unetr,
 )
 from multimodal_organ_segmentation_tpu_torch.models.unet3d import build_unet3d
-from multimodal_organ_segmentation_tpu_torch.utils.config import ConfigNode
+from multimodal_organ_segmentation_tpu_torch.parallel.mesh import make_mesh, world
+from multimodal_organ_segmentation_tpu_torch.parallel.tensor_parallel import parallelize
+from multimodal_organ_segmentation_tpu_torch.utils.config import ConfigNode, config_tp_axis
 
 MODEL_REGISTRY: Dict[str, Callable] = {
     "swin_unetr": build_swin_unetr,
@@ -92,6 +100,20 @@ def cast_to_compute_dtype(model: nn.Module, dtype: torch.dtype) -> None:
                 p.data = p.data.to(dtype)
 
 
+def tp_mesh(config):
+    """The mesh whose model axis a model built for ``config`` splits over:
+    in a job of several ranks whose config names a tensor-parallel axis and
+    lays out a model axis > 1; else None."""
+    axis = config_tp_axis(config)
+    if axis is None or world()[1] == 1:
+        return None
+    if axis != "model":
+        raise ValueError(f"parallel.tp_axis={axis!r}: the port splits layers over the mesh's "
+                         "'model' axis only (the data axis carries the batch)")
+    mesh = make_mesh(config)
+    return mesh if mesh.shape["model"] > 1 else None
+
+
 def get_model(name: str) -> Callable:
     if name not in MODEL_REGISTRY:
         raise ValueError(f"Unknown model {name!r}; available: {sorted(MODEL_REGISTRY)}")
@@ -129,6 +151,9 @@ def build_model(
     if generator is None:
         generator = torch.Generator().manual_seed(int(config.get("experiment.seed", 0)))
     init_weights(model, generator)
+    mesh = tp_mesh(config)
+    if mesh is not None:
+        parallelize(model, mesh)
     model.to(device)
     if train:
         return model.train()

@@ -35,6 +35,13 @@ spatial axes (H, W, D) keep their order in torch's three spatial slots:
              → ``weight``/``bias``, batch norm's ``mean``/``var`` →
              ``running_mean``/``running_var``; instance norm holds nothing
 - ``raw``    stays as it is (``rel_pos_bias [table, heads]``, a threshold).
+
+Tensor parallelism: ``shard_state_dict(sd, plan, mesh)`` slices a whole
+port state dict (from ``params_from_jax``, a checkpoint) to one model rank's
+shard by a ``parallel.tensor_parallel.TPPlan``; ``gather_state_dict``
+rebuilds the whole layout, from every rank's shard given as a list, or from
+this rank's shard over the mesh's model group (a collective). Checkpoints and
+the tests go through these two.
 """
 
 from __future__ import annotations
@@ -377,3 +384,34 @@ def swin_unetr_params_to_jax(state: Mapping[str, torch.Tensor],
     for stage, by_index in blocks.items():
         params[f"stage{stage}"] = {"blocks": _stack([by_index[i] for i in sorted(by_index)])}
     return params
+
+
+# ---------------------------------------------------------------------------
+# tensor-parallel shards
+# ---------------------------------------------------------------------------
+
+def shard_state_dict(sd: Mapping[str, torch.Tensor], plan, mesh) -> State:
+    """One model rank's shard of a whole state dict: each tensor the plan
+    splits cut to the rank's piece (a copy), the rest as they are. ``mesh``
+    is a mesh (this rank's model index) or the model index itself."""
+    r = mesh if isinstance(mesh, int) else mesh.axis_rank("model")
+    splits = plan.splits
+    return {k: (splits[k].shard(v, plan.m, r).clone() if k in splits else v)
+            for k, v in sd.items()}
+
+
+def gather_state_dict(shard, plan, mesh=None) -> State:
+    """The whole state dict from tensor-parallel shards: ``shard`` a list of
+    every model rank's shard in rank order (no collective), or, with
+    ``mesh``, this rank's shard, gathered over the mesh's model group (every
+    rank of the group calls it and gets the whole)."""
+    from multimodal_organ_segmentation_tpu_torch.parallel.mesh import _all_gather
+
+    splits = plan.splits
+    if mesh is None:
+        shards = list(shard)
+        return {k: (splits[k].gather([s[k] for s in shards]) if k in splits else v)
+                for k, v in shards[0].items()}
+    group = mesh.group("model")
+    return {k: (splits[k].gather(_all_gather(v, group)) if k in splits else v)
+            for k, v in shard.items()}

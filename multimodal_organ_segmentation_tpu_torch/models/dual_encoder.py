@@ -260,8 +260,13 @@ def build_dual_encoder(config, dtype: torch.dtype = torch.float32) -> DualEncode
     sequence_axis = config.get("parallel.sequence_axis", None)
     mesh = None
     if sequence_axis:
-        from multimodal_organ_segmentation_tpu_torch.parallel.mesh import make_mesh
+        from multimodal_organ_segmentation_tpu_torch.parallel.mesh import _grid, make_mesh, world
 
+        if str(sequence_axis) != "data" and world()[1] > 1 and _grid(config, world()[1])[1] > 1:
+            raise ValueError(
+                f"parallel.sequence_axis={sequence_axis!r}: the ring runs over the data axis only "
+                "(the ranks of a model group hold the same rows, and the DualEncoder is "
+                "replicated over the model axis)")
         mesh = make_mesh(config)
         if mesh.shape.get(str(sequence_axis), 1) <= 1:
             sequence_axis, mesh = None, None

@@ -37,6 +37,12 @@ from multimodal_organ_segmentation_tpu_torch.models.layers import (
 )
 from multimodal_organ_segmentation_tpu_torch.ops.attention import multi_head_attention
 from multimodal_organ_segmentation_tpu_torch.ops.resize import resize_linear
+from multimodal_organ_segmentation_tpu_torch.parallel.tensor_parallel import (
+    Split,
+    copy_in,
+    heads_rule,
+    reduce_out,
+)
 
 _RING_FALLBACK_WARNED: set = set()
 
@@ -177,7 +183,15 @@ class CrossAttentionFusion(nn.Module):
     the data-parallel step and validation, ``parallel.mesh.same_input``);
     elsewhere, as in the tile-sharded sliding window or case sharding, each
     rank holds other inputs, and it warns once and falls back likewise.
+
+    Tensor parallelism (``tp_apply``, in a SwinUNETR whose model axis is > 1):
+    ``num_heads`` is the rank's share, q/k/v hold its heads' output features,
+    kernel B runs on those heads, and ``out_proj`` holds their input
+    features, whose partial products are summed over the model group before
+    the bias; the dropout, residual and norm after it are whole on every rank.
     """
+
+    tp = None
 
     def __init__(self, channels: int, num_heads: int = 4, dropout: float = 0.0,
                  kv_block: int = 2048, sequence_axis: Optional[str] = None, mesh=None):
@@ -187,7 +201,7 @@ class CrossAttentionFusion(nn.Module):
         self.num_heads = num_heads
         self.kv_block = kv_block
         if sequence_axis is not None and mesh is not None:
-            mesh.group(sequence_axis)  # an axis other than data raises here
+            mesh.group(sequence_axis)  # an axis the mesh lacks raises here
         self.sequence_axis = sequence_axis
         self.mesh = mesh
         self.use_kernel = True
@@ -197,19 +211,39 @@ class CrossAttentionFusion(nn.Module):
         self.out_proj = Linear(channels, channels)
         self.dropout = Dropout(dropout)
 
+    def tp_rule(self, path: str, m: int) -> list:
+        heads = self.num_heads * (self.tp.size if self.tp else 1)
+        split = {f"{n}.{t}": Split(0) for n in ("q_proj", "k_proj", "v_proj")
+                 for t in ("weight", "bias")}
+        return [heads_rule(path, heads, m, {**split, "out_proj.weight": Split(1)})]
+
+    def tp_apply(self, tp, plan) -> None:
+        if self.sequence_axis is not None:
+            raise ValueError("a cross-attention fusion with a sequence axis (ring attention) "
+                             "cannot also split its heads over the model axis")
+        self.tp, self.num_heads = tp, plan.local["num_heads"]
+
     def forward(self, query_features: torch.Tensor, key_value_features: torch.Tensor) -> torch.Tensor:
         b, h, w, d, c = query_features.shape
-        hd = c // self.num_heads
+        tp = self.tp
+        hd = c // (self.num_heads * (tp.size if tp else 1))
         n = h * w * d
-        q = self.q_proj(query_features).reshape(b, n, self.num_heads, hd)
-        k = self.k_proj(key_value_features).reshape(b, -1, self.num_heads, hd)
-        v = self.v_proj(key_value_features).reshape(b, -1, self.num_heads, hd)
+        qf, kvf = ((copy_in(query_features, tp), copy_in(key_value_features, tp)) if tp
+                   else (query_features, key_value_features))
+        q = self.q_proj(qf).reshape(b, n, self.num_heads, hd)
+        k = self.k_proj(kvf).reshape(b, -1, self.num_heads, hd)
+        v = self.v_proj(kvf).reshape(b, -1, self.num_heads, hd)
         if self._ring_ok(n) and k.shape[1] == n:
             out = self._ring(q, k, v)
         else:
             out = multi_head_attention(q, k, v, kv_block=self.kv_block, use_kernel=self.use_kernel)
-        out = self.dropout(self.out_proj(out.reshape(b, h, w, d, c)))
-        return conv_cl(instance_norm, query_features + out)
+        out = out.reshape(b, h, w, d, self.num_heads * hd)
+        if tp is None:
+            out = self.out_proj(out)
+        else:
+            out = reduce_out(F.linear(out, self.out_proj.weight.to(out.dtype)), tp)
+            out = out + self.out_proj.bias.to(out.dtype)
+        return conv_cl(instance_norm, query_features + self.dropout(out))
 
     def _ring_ok(self, n: int) -> bool:
         if self.sequence_axis is None or self.mesh is None:

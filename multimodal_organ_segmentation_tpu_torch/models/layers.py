@@ -13,7 +13,11 @@ Inputs are channels-first ``[B, C, H, W, D]`` views, in any memory format
 
 On a batch split over ranks (data parallelism, ``parallel/mesh.py``) batch
 norm takes the global batch's statistics and dropout the global batch's
-mask, so each rank computes its rows of the one-process result.
+mask, so each rank computes its rows of the one-process result. Under tensor
+parallelism (``parallel/tensor_parallel.py``) a ``ConvBlock3D`` that the
+model lists as a target splits its first conv's output channels (and the
+norm between the convs) over the model ranks and sums the second conv's
+partial products over them.
 
 Flax keeps f32 parameters and casts them to the module's compute dtype at
 each op. ``Linear``, ``Conv3d``, ``ConvTranspose3d`` and ``LayerNorm`` here do
@@ -36,6 +40,12 @@ from multimodal_organ_segmentation_tpu_torch.parallel.mesh import (
     active_rows,
     all_reduce_sum,
     dropout_rows,
+)
+from multimodal_organ_segmentation_tpu_torch.parallel.tensor_parallel import (
+    Split,
+    channels_rule,
+    copy_in,
+    reduce_out,
 )
 
 NORMS = ("instance", "group", "batch", "none")
@@ -129,7 +139,8 @@ class Norm3D(nn.Module):
 
     - ``instance``: torch InstanceNorm3d defaults — affine-free, eps 1e-5
       (flax ``GroupNorm(group_size=1)`` in the JAX package);
-    - ``group``: 8 groups with scale and bias, eps 1e-5;
+    - ``group``: 8 groups with scale and bias, eps 1e-5 (a rank's share of
+      them under tensor parallelism: ``groups``);
     - ``batch``: flax's ``BatchNorm``: in training the batch's statistics in
       f32 (the biased variance, as E[x²] − E[x]²) normalise, and the f32
       running buffers move as ``r ← 0.99·r + 0.01·batch``; in eval the
@@ -142,6 +153,7 @@ class Norm3D(nn.Module):
         if norm not in NORMS:
             raise ValueError(f"unknown norm {norm!r}; choose from {NORMS}")
         self.norm = norm
+        self.groups = 8
         if norm in ("group", "batch"):
             self.weight = nn.Parameter(torch.ones(channels))
             self.bias = nn.Parameter(torch.zeros(channels))
@@ -153,7 +165,7 @@ class Norm3D(nn.Module):
         if self.norm == "instance":
             return instance_norm(x)
         if self.norm == "group":
-            return torch.group_norm(x, 8, _as(self.weight, x), _as(self.bias, x), EPS)
+            return torch.group_norm(x, self.groups, _as(self.weight, x), _as(self.bias, x), EPS)
         if self.norm == "batch":
             return self._batch_norm(x)
         return x
@@ -194,8 +206,46 @@ def activation_fn(name: str) -> Callable[[torch.Tensor], torch.Tensor]:
     return F.relu
 
 
-class ConvBlock3D(nn.Module):
-    """(conv k³, SAME → norm → act) × 2."""
+def conv_pair_splits(norm: str) -> dict:
+    """The split tensors of a conv → norm → act → conv pair: the first conv's
+    output channels (with the norm's parameters and running statistics),
+    the second conv's input channels. The second conv's bias is added once,
+    after the sum over the model ranks."""
+    params = {"conv1.weight": Split(0), "conv1.bias": Split(0), "conv2.weight": Split(1)}
+    if norm in ("group", "batch"):
+        params.update({"norm1.weight": Split(0), "norm1.bias": Split(0)})
+    if norm == "batch":
+        params.update({"norm1.running_mean": Split(0), "norm1.running_var": Split(0)})
+    return params
+
+
+def row_conv(conv: nn.Conv3d, x: torch.Tensor, tp) -> torch.Tensor:
+    """A row-parallel conv: the partial products of the rank's input
+    channels, summed over the model group, then the bias."""
+    y = reduce_out(conv._conv_forward(x, _as(conv.weight, x), None), tp)
+    return y + _as(conv.bias, y).reshape(1, -1, 1, 1, 1)
+
+
+class ConvPairSplit:
+    """The tensor-parallel rule of a block whose ``conv1`` → ``norm1`` → act →
+    ``conv2`` splits by ``conv1``'s output channels (``conv_pair_splits``);
+    ``tp`` is the model group once ``parallelize`` applied the plan."""
+
+    tp = None
+
+    def tp_rule(self, path: str, m: int) -> list:
+        return [channels_rule(path, self.conv1.out_channels, self.norm1.norm, m,
+                              conv_pair_splits(self.norm1.norm))]
+
+    def tp_apply(self, tp, plan) -> None:
+        self.tp = tp
+        self.norm1.groups = plan.local.get("groups", self.norm1.groups)
+
+
+class ConvBlock3D(ConvPairSplit, nn.Module):
+    """(conv k³, SAME → norm → act) × 2. Under tensor parallelism
+    (``tp_apply``) conv1 and norm1 hold the rank's output channels and conv2
+    its input channels; norm2 and the output are whole on every rank."""
 
     def __init__(self, in_channels: int, features: int, kernel_size: int = 3,
                  norm: str = "instance", activation: str = "relu"):
@@ -210,6 +260,9 @@ class ConvBlock3D(nn.Module):
         self.norm2 = Norm3D(norm, features)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.tp is not None:
+            x = self.act(self.norm1(self.conv1(copy_in(x, self.tp))))
+            return self.act(self.norm2(row_conv(self.conv2, x, self.tp)))
         x = self.act(self.norm1(self.conv1(x)))
         return self.act(self.norm2(self.conv2(x)))
 
@@ -276,10 +329,25 @@ class Dropout3D(nn.Dropout3d):
 
 class Dropout(nn.Dropout):
     """Element dropout; on a batch split over ranks (``parallel.mesh.rows``)
-    each rank keeps its rows of the mask the whole batch draws."""
+    each rank keeps its rows of the mask the whole batch draws. On an
+    activation split over the model ranks (``tp_slice = (dim, m, rank)``,
+    set by a tensor-parallel layer) it keeps its slice of the mask the whole
+    activation draws."""
+
+    tp_slice = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.p <= 0.0 or not self.training:
             return x
+        if self.tp_slice is not None:
+            dim, m, r = self.tp_slice
+            shape = list(x.shape)
+            n = shape[dim]
+            shape[dim] = n * m
+            ones = torch.ones(shape, dtype=x.dtype, device=x.device)
+            noise = dropout_rows(ones, self.p, channel=False)
+            if noise is None:
+                noise = F.dropout(ones, self.p, True)
+            return x * noise.narrow(dim, r * n, n)
         split = dropout_rows(x, self.p, channel=False)
         return super().forward(x) if split is None else split

@@ -23,7 +23,13 @@ Differences from the flax module, all forced by eager PyTorch:
 - ``scan_blocks`` (one ``lax.scan`` body per stage) is the same math as
   unrolled blocks, so both build unrolled blocks here; ``convert`` unstacks
   a stacked JAX tree;
-- tensor parallelism is not ported yet and raises;
+- tensor parallelism (``parallel.mesh.model`` > 1 in a job of several
+  ranks) is written out over the model group (``parallel/tensor_parallel.py``)
+  where the JAX package leaves it to GSPMD: window attention by heads (kernel
+  A on the rank's heads and their rows of the relative-position bias), each
+  block's MLP by hidden units, the cross-attention fusion by heads (kernel
+  B), and the UNETR decoder's residual blocks fed by the activations JAX
+  constrains (decoders 5 to 2) by channels (``tp_targets``);
 - the explainability hooks are arguments of ``forward`` rather than flax
   collections: ``capture`` returns the pyramid taps, ``perturb`` (a dict) takes
   the live activations at the points ``stage0..stage4`` that flax's ``perturb`` names, so that
@@ -55,21 +61,28 @@ from torch.utils.checkpoint import checkpoint
 from multimodal_organ_segmentation_tpu_torch.models.fusion import CrossAttentionFusion
 from multimodal_organ_segmentation_tpu_torch.models.layers import (
     Conv3d,
+    ConvPairSplit,
     ConvTranspose3d,
     Dropout,
     LayerNorm,
     Linear,
     Norm3D,
+    _as,
     cf,
     conv_cl,
     logits_out,
     perturb_at,
+    row_conv,
     supervised_outputs,
 )
-from multimodal_organ_segmentation_tpu_torch.utils.config import (
-    deep_supervision,
-    refuse_tensor_parallel,
+from multimodal_organ_segmentation_tpu_torch.parallel.tensor_parallel import (
+    Split,
+    copy_in,
+    heads_rule,
+    hidden_rule,
+    reduce_out,
 )
+from multimodal_organ_segmentation_tpu_torch.utils.config import deep_supervision
 from multimodal_organ_segmentation_tpu_torch.ops.attention import takes_custom_op
 from multimodal_organ_segmentation_tpu_torch.ops.window_attention import window_mha
 
@@ -169,7 +182,14 @@ class WindowAttention(nn.Module):
     model dtype) of this call. The kernel never writes them out, so a call
     given one takes the dense path, as the flax module does when its
     ``intermediates`` collection is mutable.
+
+    Under tensor parallelism (``tp_apply``) ``num_heads`` is the rank's share:
+    ``qkv`` holds its heads' rows of q, k and v, ``rel_pos_bias`` their
+    columns, and ``proj`` their input features, whose partial products are
+    summed over the model group before the bias.
     """
+
+    tp = None
 
     def __init__(self, dim: int, num_heads: int, window: Window, attn_drop: float = 0.0,
                  table_window: Optional[Window] = None):
@@ -192,6 +212,21 @@ class WindowAttention(nn.Module):
         )
         self.dropout = Dropout(attn_drop)
 
+    def tp_rule(self, path: str, m: int) -> list:
+        return [heads_rule(path, self.num_heads * (self.tp.size if self.tp else 1), m, {
+            "qkv.weight": Split(0, 3), "qkv.bias": Split(0, 3), "rel_pos_bias": Split(1),
+            "proj.weight": Split(1)})]
+
+    def tp_apply(self, tp, plan) -> None:
+        self.tp, self.num_heads = tp, plan.local["num_heads"]
+
+    def _proj(self, out: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        out = out.reshape(out.shape[0], out.shape[1], -1).to(x.dtype)
+        if self.tp is None:
+            return self.proj(out)
+        y = reduce_out(F.linear(out, _as(self.proj.weight, out)), self.tp)
+        return y + _as(self.proj.bias, y)
+
     def bias(self, n: int) -> torch.Tensor:
         """The f32 ``[heads, N, N]`` relative-position bias."""
         idx = self.rel_index[:n, :n].reshape(-1)
@@ -200,7 +235,9 @@ class WindowAttention(nn.Module):
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
                 sow: Optional[List[torch.Tensor]] = None) -> torch.Tensor:
         b_, n, c = x.shape
-        head_dim = c // self.num_heads
+        head_dim = self.dim // (self.num_heads * (self.tp.size if self.tp else 1))
+        if self.tp is not None:
+            x = copy_in(x, self.tp)
         qkv = self.qkv(x).reshape(b_, n, 3, self.num_heads, head_dim)
         q, k, v = qkv.unbind(2)
         bias = self.bias(n)
@@ -210,7 +247,7 @@ class WindowAttention(nn.Module):
         if self.use_kernel and self.attn_drop == 0.0 and sow is None and takes_custom_op(x):
             nw = mask.shape[0] if mask is not None else 1
             out = window_mha(q, k, v, bias, mask, nw)
-            return self.proj(out.reshape(b_, n, c).to(x.dtype))
+            return self._proj(out, x)
 
         # for bf16 the scores come from an f32 product scaled in f32, and
         # bias, mask and softmax stay in the model dtype, as in the JAX package
@@ -228,7 +265,7 @@ class WindowAttention(nn.Module):
             sow.append(attn)
         attn = self.dropout(attn)
         out = torch.einsum("bhnm,bmhd->bnhd", attn, v)
-        return self.proj(out.reshape(b_, n, c).to(x.dtype))
+        return self._proj(out, x)
 
 
 class SwinBlock(nn.Module):
@@ -237,8 +274,12 @@ class SwinBlock(nn.Module):
     ``window`` is the configured window and ``grid`` the spatial size this
     block sees: the window clamps to the grid (and the bias table with it,
     unless ``monai_table`` keeps MONAI's table of the configured window),
-    and a window that covers an axis does not shift along it.
+    and a window that covers an axis does not shift along it. Under tensor
+    parallelism the MLP splits by hidden units (``tp_apply``): ``mlp_fc1``
+    holds the rank's rows, ``mlp_fc2`` their columns.
     """
+
+    tp = None
 
     def __init__(self, dim: int, num_heads: int, window: Window, grid: Window,
                  shift: bool = False, mlp_ratio: float = 4.0, drop: float = 0.0,
@@ -262,6 +303,23 @@ class SwinBlock(nn.Module):
             _shift_attention_mask(padded, self.window, self.shift) if any(self.shift) else None,
             persistent=False,
         )
+
+    def tp_rule(self, path: str, m: int) -> list:
+        # a layer keeps its constructor's sizes when its weights are sliced
+        hidden = self.mlp_fc1.out_features
+        return self.attn.tp_rule(f"{path}.attn", m) + [hidden_rule(path, hidden, m, {
+            "mlp_fc1.weight": Split(0), "mlp_fc1.bias": Split(0), "mlp_fc2.weight": Split(1)})]
+
+    def tp_apply(self, tp, plan) -> None:
+        self.tp = tp
+        self.drop.tp_slice = (-1, tp.size, tp.rank)
+
+    def _mlp(self, x: torch.Tensor) -> torch.Tensor:
+        if self.tp is None:
+            return self.mlp_fc2(self.drop(F.gelu(self.mlp_fc1(x))))
+        z = self.drop(F.gelu(self.mlp_fc1(copy_in(x, self.tp))))
+        z = reduce_out(F.linear(z, _as(self.mlp_fc2.weight, z)), self.tp)
+        return z + _as(self.mlp_fc2.bias, z)
 
     def forward(self, x: torch.Tensor, sow: Optional[List[torch.Tensor]] = None) -> torch.Tensor:
         b, h, w, d, c = x.shape
@@ -290,9 +348,7 @@ class SwinBlock(nn.Module):
             y = y[:, :h, :w, :d, :]
 
         x = shortcut + y
-        z = F.gelu(self.mlp_fc1(self.norm2(x)))
-        z = self.mlp_fc2(self.drop(z))
-        return x + z
+        return x + self._mlp(self.norm2(x))
 
 
 # MONAI's v1 ``PatchMerging`` ("merging", SwinUNETR's default downsample)
@@ -335,9 +391,11 @@ def param_free_layer_norm(x: torch.Tensor) -> torch.Tensor:
     return F.layer_norm(x.float(), (x.shape[-1],), eps=1e-5).to(x.dtype)
 
 
-class UnetrResBlock(nn.Module):
+class UnetrResBlock(ConvPairSplit, nn.Module):
     """conv-norm-act ×2 + 1×1 shortcut (UNETR basic residual block), on
-    channels-first ``[B, C, H, W, D]``."""
+    channels-first ``[B, C, H, W, D]``. Under tensor parallelism conv1 and
+    norm1 hold the rank's output channels and conv2 its input channels;
+    norm2 and the shortcut are whole on every rank."""
 
     def __init__(self, in_channels: int, features: int, norm: str = "instance"):
         super().__init__()
@@ -351,8 +409,12 @@ class UnetrResBlock(nn.Module):
             self.norm3 = Norm3D(norm, features)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.leaky_relu(self.norm1(self.conv1(x)), 0.01)
-        y = self.norm2(self.conv2(y))
+        if self.tp is not None:
+            y = F.leaky_relu(self.norm1(self.conv1(copy_in(x, self.tp))), 0.01)
+            y = self.norm2(row_conv(self.conv2, y, self.tp))
+        else:
+            y = F.leaky_relu(self.norm1(self.conv1(x)), 0.01)
+            y = self.norm2(self.conv2(y))
         residual = x if self.conv3 is None else self.norm3(self.conv3(x))
         return F.leaky_relu(y + residual, 0.01)
 
@@ -485,6 +547,15 @@ class SwinUNETR(nn.Module):
         """The names of the perturbation points."""
         return [f"stage{i}" for i in range(5)]
 
+    def tp_targets(self) -> List[str]:
+        """The layers tensor parallelism splits where it can: every Swin
+        block's attention and MLP, every cross-attention fusion, and the
+        residual blocks of decoders 5 to 2, which take the activations the
+        JAX model constrains to the model axis (``swin_unetr.py:757-766``)."""
+        blocks = [f"stage{s}_block{b}" for s in range(4) for b in range(self.depths[s])]
+        fusions = [f"xfuse{s}" for s in range(4) if hasattr(self, f"xfuse{s}")]
+        return blocks + fusions + [f"decoder{i}.res" for i in (5, 4, 3, 2)]
+
     def forward(
         self,
         x: torch.Tensor,
@@ -592,7 +663,6 @@ def build_swin_unetr(config, dtype: torch.dtype = torch.float32) -> SwinUNETR:
     if monai_compat and bool(backbone.get("scan_blocks", False)):
         raise ValueError("model.backbone.scan_blocks stacks block params on a depth axis — "
                          "incompatible with monai_compat checkpoint-parity trees")
-    refuse_tensor_parallel(config)
     stages = fusion.get("stages") if hasattr(fusion, "get") else None
     return SwinUNETR(
         in_channels=int(config.get("model.in_channels", len(modalities))),

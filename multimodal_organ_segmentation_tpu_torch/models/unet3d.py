@@ -11,6 +11,11 @@ Deep supervision: 1×1 f32 heads ``ds_head{j}`` on the intermediate decoder
 stages; in training the model returns ``[main, aux_fine, ..., aux_coarse]``,
 each linearly upsampled to the full grid (the trainer's loss wrapper weights
 them 1, 1/2, 1/4, ...); in eval only the logits.
+
+Tensor parallelism (``parallel.mesh.model`` > 1 in a job of several ranks):
+the conv block of each down block splits its channels over the model ranks
+(``tp_targets``, ``parallel/tensor_parallel.py``), where the JAX model
+constrains the down blocks' outputs to the model axis.
 """
 
 from __future__ import annotations
@@ -32,10 +37,7 @@ from multimodal_organ_segmentation_tpu_torch.models.layers import (
     perturb_at,
     supervised_outputs,
 )
-from multimodal_organ_segmentation_tpu_torch.utils.config import (
-    deep_supervision,
-    refuse_tensor_parallel,
-)
+from multimodal_organ_segmentation_tpu_torch.utils.config import deep_supervision
 
 
 class UNet3D(nn.Module):
@@ -68,6 +70,12 @@ class UNet3D(nn.Module):
     def perturb_points(self) -> List[str]:
         """The names of the perturbation points."""
         return [f"feat{i}" for i in range(len(self.features))]
+
+    def tp_targets(self) -> List[str]:
+        """The layers tensor parallelism splits where it can: the conv block
+        of each down block, whose output the JAX model constrains to the
+        model axis (``unet3d.py:78``)."""
+        return [f"down{i}.block" for i in range(len(self.features) - 1)]
 
     def forward(
         self,
@@ -107,7 +115,6 @@ class UNet3D(nn.Module):
 def build_unet3d(config, dtype: torch.dtype = torch.float32) -> UNet3D:
     """Factory from config (the JAX package's ``build_unet3d``)."""
     backbone = config.get("model.backbone", {}) or {}
-    refuse_tensor_parallel(config)
     return UNet3D(
         in_channels=len(config.get("data.modalities", ["CT", "PET"])),
         out_channels=int(config.get("model.out_channels", 8)),

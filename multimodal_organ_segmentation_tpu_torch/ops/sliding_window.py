@@ -356,7 +356,10 @@ class SlidingWindowRunner:
     with the given weights. With a ``mesh`` the chunk count is rounded up to
     a multiple of its ``axis_name`` size and the chunks are split over the
     ranks (:func:`sharded_sliding_window_inference`); every rank must call
-    it with the same volume.
+    it with the same volume. On a mesh with a model axis > 1 the chunks are
+    split over the data axis only: the ranks of a model group run the same
+    tiles, each its shard of the model, and the blend sums over the data
+    group.
     """
 
     def __init__(
@@ -381,8 +384,6 @@ class SlidingWindowRunner:
             sw_batch_size if isinstance(sw_batch_size, str) else int(sw_batch_size)
         )
         self.mode = str(mode)
-        if mesh is not None:
-            mesh.group(axis_name)  # a tensor-parallel mesh raises here
         self.mesh = mesh
         self.axis_name = axis_name
         self._keys = set()

@@ -1,5 +1,6 @@
-"""Parallelism: process meshes, data parallelism, ZeRO-1, case sharding and
-ring attention (port of the JAX package's ``parallel/``). A mesh is a
+"""Parallelism: process meshes, data parallelism, ZeRO-1, case sharding,
+ring attention and tensor parallelism (port of the JAX package's
+``parallel/``). A mesh is a
 ``torch.distributed`` process group with one rank per device."""
 
 from multimodal_organ_segmentation_tpu_torch.parallel.mesh import (  # noqa: F401

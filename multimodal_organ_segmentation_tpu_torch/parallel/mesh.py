@@ -4,15 +4,21 @@
 A mesh here is a ``torch.distributed`` process group with one rank per
 device, where JAX holds every device in one process:
 
-- ``make_mesh`` lays the ranks out as a 2D ``(data, model)`` mesh by JAX's
+- ``make_mesh`` lays the ranks out as a 2D ``(data, model)`` grid by JAX's
   rule (``parallel.mesh.data: -1`` takes every rank left) with JAX's errors;
-- a batch is split over ``data`` in contiguous blocks of rows, rank order
-  (``batch_rows``); the JAX package lets
-  GSPMD insert the gradient and statistic reductions, the port issues them
-  itself (``all_reduce_sum``, ``all_gather_cat``, which are autograd-aware);
+  ``DeviceMesh.group("data")`` is the rank's group along the data axis (the
+  ranks that hold its model shard, one for each block of rows) and
+  ``group("model")`` its group along the model axis (the ranks that hold
+  the same rows, one for each model shard: tensor parallelism,
+  ``parallel/tensor_parallel.py``);
+- a batch is split over ``data`` in contiguous blocks of rows, data-axis
+  order (``batch_rows``): the ranks of one model group hold the same rows;
+  the JAX package lets GSPMD insert the gradient and statistic reductions,
+  the port issues them itself (``all_reduce_sum``, ``all_gather_cat``, which
+  are autograd-aware), each over the axis it names;
 - ZeRO-1 (``zero1_spec``, ``Zero1Optimizer``): each rank keeps and updates
   one slice of every optimiser-state leaf along the leaf's largest dim that
-  divides the data axis, then gathers the parameters.
+  divides the data axis, then gathers the parameters over the data group.
 
 NCCL serves CUDA ranks and gloo CPU ranks. gloo carries only ``all_reduce``
 and ``broadcast`` for CUDA tensors: where a collective of CUDA tensors runs
@@ -50,35 +56,76 @@ def world() -> Tuple[int, int]:
 class DeviceMesh:
     """The ranks of a job laid out as a ``(data, model)`` grid. ``shape`` is
     ``{"data": d, "model": m}`` as JAX's ``Mesh.shape``; ``devices`` the rank
-    grid. The data axis's process group is the default group (model == 1:
-    tensor parallelism is refused by the model builders)."""
+    grid, ``devices[i, j]`` the rank of data index i and model index j.
+
+    With a model axis of 1 the data axis's group is the default group (no
+    group is made). With a model axis > 1 the mesh makes, on every rank and in
+    one order, a group for every row of the grid (the model groups) and one for
+    every column (the data groups), once per layout: ``dist.new_group`` is a
+    collective of the default group, so every rank must build its first mesh
+    of a layout at the same point of the program."""
 
     def __init__(self, devices: np.ndarray):
         self.devices = np.asarray(devices)
         self.shape = dict(zip(AXES, self.devices.shape))
+        self._groups = None
+        if self.shape["model"] > 1 and world()[1] > 1:
+            self._groups = _axis_groups(self.devices)
 
     def group(self, axis: str = "data"):
-        if axis != "data" or self.shape["model"] != 1:
-            raise NotImplementedError(
-                "a mesh axis other than data, or a model axis > 1 (tensor parallelism), is not "
-                "ported to the PyTorch package yet")
-        return dist.group.WORLD
+        """The rank's process group along ``axis``."""
+        if axis not in AXES:
+            raise ValueError(f"unknown mesh axis {axis!r}; the axes are {AXES}")
+        if self.shape["model"] > 1 and self._groups is None:
+            raise RuntimeError(f"a {self.shape} mesh needs a process group of its ranks")
+        if self._groups is None:
+            if axis == "model":
+                raise ValueError("the mesh has a model axis of 1: there is no model group")
+            return dist.group.WORLD
+        d, m = self._position()
+        return self._groups[axis][m if axis == "data" else d]
+
+    def _position(self) -> Tuple[int, int]:
+        rank, _ = world()
+        d, m = np.argwhere(self.devices == rank)[0]
+        return int(d), int(m)
 
     def axis_rank(self, axis: str = "data") -> int:
         """This rank's position along ``axis``."""
-        rank, _ = world()
-        d, m = np.argwhere(self.devices == rank)[0]
-        return int(d if axis == "data" else m)
+        d, m = self._position()
+        return d if axis == "data" else m
 
     def __repr__(self) -> str:
         return f"DeviceMesh({self.shape})"
 
 
-def make_mesh(config=None, devices: Optional[Sequence[int]] = None) -> DeviceMesh:
-    """The ``(data, model)`` mesh of ``devices`` (the job's ranks by default)
-    from ``parallel.mesh``, by the JAX package's rule and errors."""
-    devices = list(devices if devices is not None else range(world()[1]))
-    n = len(devices)
+_GROUPS: Dict[Tuple, Dict[str, list]] = {}
+
+
+def _axis_groups(devices: np.ndarray) -> Dict[str, list]:
+    """The groups of a ``(data, model)`` grid: ``"model"`` one per data index
+    (a row of the grid), ``"data"`` one per model index (a column), made once
+    per layout in the same order on every rank."""
+    key = (devices.shape, tuple(int(r) for r in devices.reshape(-1)))
+    if key not in _GROUPS:
+        rows = [dist.new_group([int(r) for r in row]) for row in devices]
+        cols = [dist.new_group([int(r) for r in col]) for col in devices.T]
+        _GROUPS[key] = {"model": rows, "data": cols}
+    return _GROUPS[key]
+
+
+def data_shard(config=None) -> Tuple[int, int]:
+    """``(data index, data-axis size)`` of this rank in the mesh ``make_mesh``
+    lays out for ``config`` over the job's ranks, without making any group:
+    how a loader splits the train stream."""
+    rank, size = world()
+    data, model = _grid(config, size)
+    return rank // model, data
+
+
+def _grid(config, n: int) -> Tuple[int, int]:
+    """``(data, model)`` of a mesh of ``n`` devices from ``parallel.mesh``, by
+    the JAX package's rule and errors."""
     mesh_cfg: Dict[str, Any] = {}
     if config is not None:
         mc = config.get("parallel.mesh", {}) or {}
@@ -91,7 +138,14 @@ def make_mesh(config=None, devices: Optional[Sequence[int]] = None) -> DeviceMes
         data = n // model
     if data * model != n:
         raise ValueError(f"mesh {data}x{model} != {n} devices; set parallel.mesh.data: -1")
-    return DeviceMesh(np.asarray(devices).reshape(data, model))
+    return data, model
+
+
+def make_mesh(config=None, devices: Optional[Sequence[int]] = None) -> DeviceMesh:
+    """The ``(data, model)`` mesh of ``devices`` (the job's ranks by default)
+    from ``parallel.mesh``, by the JAX package's rule and errors."""
+    devices = list(devices if devices is not None else range(world()[1]))
+    return DeviceMesh(np.asarray(devices).reshape(_grid(config, len(devices))))
 
 
 def zero1_spec(shape, n_shards: int, axis: str = "data") -> tuple:

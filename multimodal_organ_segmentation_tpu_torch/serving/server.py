@@ -32,11 +32,27 @@ Endpoints (JSON in/out):
 
 The service runs on the CUDA device unless ``device="cpu"`` is asked for;
 without a card it raises.
+
+Several ranks (``torchrun``, one device each): every rank builds the service
+and its model (split over the model group under tensor parallelism), and
+rank 0 alone owns the HTTP server. Rank 0 admits a request, loads and
+normalises the volume, then, holding the device lock, broadcasts it to every
+rank (a header with the operation, shape and dtype over a gloo control
+group, then the volume); every rank runs the same sliding-window pass, the
+tile chunks split over the data axis (``Trainer._inference_mesh``), and rank
+0 post-processes, writes and answers. The other ranks wait in
+``InferenceService.follow``; while idle, rank 0 sends a heartbeat every
+quarter of ``FOLLOWER_TIMEOUT_S`` (120 s), and a follower whose receive
+outlasts that timeout raises instead of waiting forever. At
+shutdown rank 0 drains, then sends the stop that ends every follower's
+loop. ``/v1/stats`` is rank 0's, with the mesh's shape (``mesh``, only in
+a job of several ranks: the one-process stats are the JAX service's).
 """
 
 from __future__ import annotations
 
 import collections
+import datetime
 import json
 import threading
 import time
@@ -47,6 +63,11 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
+
+# several ranks: how long a follower's receive waits for rank 0 before it
+# raises; idle rank 0 pings every quarter of it, and during a pass the
+# followers wait in the runner's collectives, not on this receive
+FOLLOWER_TIMEOUT_S = 120.0
 
 
 def _is_program_artifact(path) -> bool:
@@ -80,15 +101,9 @@ class InferenceService:
             SlidingWindowRunner,
         )
 
-        from multimodal_organ_segmentation_tpu_torch.parallel.mesh import world
+        from multimodal_organ_segmentation_tpu_torch.parallel.mesh import make_mesh, world
 
-        if world()[1] > 1:
-            # the JAX service is one process over its local devices; over
-            # ranks every request would have to be broadcast to every rank
-            raise NotImplementedError(
-                f"serving from a job of {world()[1]} ranks is not ported to the PyTorch "
-                "package yet; it comes with the multi-rank serving slice (ROADMAP A): run the "
-                "service as one process")
+        self.rank, self.world = world()
         self.config = config
         self.logger = logger
         self.device = resolve_device(device)
@@ -120,6 +135,11 @@ class InferenceService:
 
             self._members: List[Any] = [None]
             model_name = f"{meta.get('model', 'unknown')} (pt2)"
+            mesh = make_mesh(config) if self.world > 1 else None
+            if mesh is not None and mesh.shape["model"] > 1:
+                raise ValueError(f"{checkpoint_path}: an exported program holds the whole model; "
+                                 "it cannot be split over a model axis > 1")
+            dp_mesh = mesh if mesh is not None and mesh.shape["data"] > 1 else None
         else:
             from multimodal_organ_segmentation_tpu_torch.train.trainer import Trainer
 
@@ -142,6 +162,9 @@ class InferenceService:
             num_classes = trainer.num_classes
             predict_fn = trainer._predict_fn
             model_name = str(config.get("model.name", "unknown"))
+            mesh = trainer.mesh
+            # the rule of batch predict: tile chunks over the data axis
+            dp_mesh = trainer._inference_mesh()
 
         self.runner = SlidingWindowRunner(
             predict_fn,
@@ -150,7 +173,9 @@ class InferenceService:
             overlap=float(sw_cfg.get("overlap", 0.5)),
             sw_batch_size=config.get("inference.batch_size", 4),
             mode=str(sw_cfg.get("mode", "gaussian")),
+            mesh=dp_mesh,
         )
+        self.mesh_shape = (dict(mesh.shape) if mesh is not None else {"data": 1, "model": 1})
         self._variables = self._members[0]
         self.model_name = model_name
         self.normalize = bool(config.get("inference.normalize", False))
@@ -175,6 +200,103 @@ class InferenceService:
         # (400×400×700); anything past this is a malformed or abusive
         # request, not a clinical volume
         self.max_volume_voxels = int(config.get("serving.max_volume_voxels", 128_000_000))
+        # several ranks: a gloo control group (headers, heartbeats, stop)
+        # whose receives time out, made on every rank at the same point
+        self._control = None
+        self._last_sent = time.monotonic()
+        self._closed = threading.Event()
+        self._fault: Optional[BaseException] = None
+        self.follower_timeout_s = FOLLOWER_TIMEOUT_S
+        if self.world > 1:
+            import torch.distributed as dist
+
+            self._control = dist.new_group(
+                backend="gloo", timeout=datetime.timedelta(seconds=self.follower_timeout_s))
+            if self.rank == 0:
+                threading.Thread(target=self._heartbeat, name="serve-heartbeat",
+                                 daemon=True).start()
+
+    # -- several ranks ----------------------------------------------------
+
+    def _send(self, header: Dict[str, Any], volume: Optional[torch.Tensor] = None) -> None:
+        """Rank 0, under the device lock: ``header`` to every rank over the
+        control group, then ``volume`` over the default group."""
+        import torch.distributed as dist
+
+        if self._control is None:
+            return
+        if self._closed.is_set():
+            raise ServiceBusyError("the service is shutting down")
+        if self._fault is not None:
+            raise RuntimeError(f"a follower rank is lost: {self._fault}")
+        dist.broadcast_object_list([header], src=0, group=self._control)
+        if volume is not None:
+            dist.broadcast(volume.contiguous(), src=0)
+        self._last_sent = time.monotonic()
+
+    def _heartbeat(self) -> None:
+        """Rank 0: a ping whenever no message went out for a quarter of the
+        followers' timeout, until ``close``."""
+        period = self.follower_timeout_s / 4
+        while not self._closed.wait(period / 4):
+            if time.monotonic() - self._last_sent < period:
+                continue
+            with self._device_lock:
+                if self._closed.is_set():
+                    return
+                try:
+                    self._send({"op": "ping"})
+                except Exception as e:  # the group is broken: requests fail from here
+                    self._fault = e
+                    if self.logger:
+                        self.logger.error(f"serve heartbeat failed: {e}")
+                    return
+
+    def close(self) -> None:
+        """Rank 0: end every follower's loop (after the HTTP server drained)."""
+        with self._device_lock:
+            if self._closed.is_set():
+                return
+            self._closed.set()
+            if self._control is not None and self.rank == 0 and self._fault is None:
+                import torch.distributed as dist
+
+                dist.broadcast_object_list([{"op": "stop"}], src=0, group=self._control)
+
+    def follow(self) -> int:
+        """A rank other than 0: run every pass rank 0 broadcasts until its
+        stop; returns the passes run. A receive that outlasts
+        ``FOLLOWER_TIMEOUT_S`` (rank 0 gone) raises."""
+        import torch.distributed as dist
+
+        from multimodal_organ_segmentation_tpu_torch.ops.sliding_window import (
+            ensemble_run_sw,
+            predict_labels,
+        )
+
+        run_sw = ensemble_run_sw(self.runner, self._members)
+        passes = 0
+        while True:
+            box = [None]
+            dist.broadcast_object_list(box, src=0, group=self._control)
+            header = box[0]
+            op = header["op"]
+            if op == "stop":
+                self._closed.set()
+                return passes
+            if op == "ping":
+                continue
+            vol = torch.empty(header["shape"], dtype=getattr(torch, header["dtype"]),
+                              device=self.device)
+            dist.broadcast(vol, src=0)
+            if op == "warmup":
+                self.runner(vol, self._variables)
+                self._count("warmups")
+            else:
+                predict_labels(run_sw, vol, tta=self.tta)
+                with self._stats_lock:
+                    self.requests_served += 1
+            passes += 1
 
     def _count(self, key: str, n: int = 1) -> None:
         with self._stats_lock:
@@ -214,6 +336,7 @@ class InferenceService:
             vol = torch.zeros((h, w, d, len(self.modalities)), dtype=torch.float32,
                               device=self.device)
             with self._device_lock:
+                self._send({"op": "warmup", "shape": list(vol.shape), "dtype": "float32"}, vol)
                 self.runner(vol, self._variables)
                 if self.device.type == "cuda":
                     torch.cuda.synchronize(self.device)
@@ -311,6 +434,8 @@ class InferenceService:
         run_sw = ensemble_run_sw(self.runner, self._members)
         probs = unc = None
         with self._device_lock:
+            self._send({"op": "segment", "shape": list(image.shape),
+                        "dtype": str(image.dtype).split(".")[-1], "case_id": case_id}, image)
             if probabilities or uncertainty:
                 pred_dev, probs_dev = predict_labels(
                     run_sw, image, tta=self.tta, return_probs=True, already_probs=is_ensemble)
@@ -396,6 +521,8 @@ class InferenceService:
             "max_in_flight": self.max_in_flight,
             "window": len(lats["total_s"]),
         }
+        if getattr(self, "world", 1) > 1:  # a multi-rank service: its mesh (JAX's has none)
+            out["mesh"] = dict(self.mesh_shape)
         for name, xs in lats.items():
             if xs:
                 out[name] = {
@@ -479,18 +606,30 @@ def run_serve(config, logger, device=None) -> None:
     port = int(p) if p is not None else int(config.get("serving.port", 8080))
     device = device if device is not None else config.get("hardware.device", None)
     service = InferenceService(config, ckpt, logger=logger, device=device)
+    import signal
+
+    if service.rank != 0:
+        # a follower: rank 0 owns the HTTP server and ends this loop with its
+        # stop after it drained; a SIGTERM here (a launcher stopping the job)
+        # waits for that stop, which the receive's timeout bounds
+        try:
+            signal.signal(signal.SIGTERM, lambda signum, frame: logger.info(
+                "SIGTERM: waiting for rank 0's stop"))
+        except ValueError:
+            pass
+        logger.info(f"rank {service.rank} of {service.world} follows rank 0's requests")
+        passes = service.follow()
+        logger.info(f"rank {service.rank}: stop after {passes} passes; final stats: "
+                    f"{json.dumps(service.stats())}")
+        return
     for shape in config.get("serving.warmup_shapes", []) or []:
         info = service.warmup(shape)
         logger.info(f"warmup {list(shape)} → bucket {info['bucket']} ({info['warmup_s']}s)")
     server = make_server(service, host, port)
     bound_port = server.server_address[1]  # real port when --port 0
-    logger.info(f"serving {service.model_name} on http://{host}:{bound_port} "
-                f"(endpoints: /healthz, /v1/stats, /v1/warmup, /v1/segment)")
 
     # a supervisor stops the service with SIGTERM: stop accepting, let
     # in-flight requests drain, exit 0 so it restarts cleanly elsewhere
-    import signal
-
     def _term(signum, frame):
         logger.info("SIGTERM: draining and shutting down")
         threading.Thread(target=server.shutdown, daemon=True).start()
@@ -499,10 +638,14 @@ def run_serve(config, logger, device=None) -> None:
         signal.signal(signal.SIGTERM, _term)
     except ValueError:  # not the main thread (embedded use)
         pass
+    logger.info(f"serving {service.model_name} on http://{host}:{bound_port} "
+                f"(endpoints: /healthz, /v1/stats, /v1/warmup, /v1/segment; {service.world} "
+                f"rank(s), mesh {service.mesh_shape})")
     try:
         server.serve_forever()
     except KeyboardInterrupt:
         pass
     finally:
         server.server_close()
+        service.close()  # after the last device pass: ends the followers' loops
         logger.info(f"final stats: {json.dumps(service.stats())}")

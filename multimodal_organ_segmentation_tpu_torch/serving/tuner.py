@@ -50,6 +50,23 @@ def select_best(results: List[Dict[str, Any]], allow_turbo: bool = False
     return max(pool, key=lambda r: r["vol_per_min"]) if pool else None
 
 
+def refuse_ranks() -> None:
+    """The tuner times one device's serving pass and runs as one process. In
+    a job of several ranks a candidate that fails on one rank (out of memory
+    at a large chunk, which the sweep records and passes over) would leave
+    the others waiting in the pass's collectives, and ranks that time
+    candidates apart could pick different winners; the chunk size it picks
+    is a per-device setting, which a multi-rank service takes as it is."""
+    from multimodal_organ_segmentation_tpu_torch.parallel.mesh import world
+
+    if world()[1] > 1:
+        raise RuntimeError(
+            f"--mode tune runs as one process (a job of {world()[1]} ranks here): a candidate "
+            "that fails on one rank would leave the others waiting in its collectives, and the "
+            "chunk size it picks is per device; tune on one card without torchrun and serve "
+            "the multi-rank job with the profile it writes")
+
+
 def tune_serving(
     config,
     logger=None,
@@ -72,9 +89,12 @@ def tune_serving(
     carries ``vol_per_min`` or ``error``. Weights come from ``checkpoint``
     when given (the timing does not depend on their values, so a random
     init measures the same work). Runs on the card unless ``device`` (or the
-    config's ``hardware.device``) names the CPU.
+    config's ``hardware.device``) names the CPU. Runs as one process: in a
+    job of several ranks it raises (see ``refuse_ranks``).
     """
     import torch
+
+    refuse_ranks()
 
     from multimodal_organ_segmentation_tpu_torch.cli import resolve_device
     from multimodal_organ_segmentation_tpu_torch.ops.sliding_window import (

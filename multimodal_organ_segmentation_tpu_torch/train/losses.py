@@ -21,6 +21,8 @@ from typing import Callable, Optional, Sequence, Union
 import torch
 import torch.nn.functional as F
 
+from multimodal_organ_segmentation_tpu_torch.parallel.mesh import active_rows, all_reduce_sum
+
 
 def _at_least_f32(x: torch.Tensor) -> torch.Tensor:
     """Cast up to f32 for reductions, keeping f64."""
@@ -80,14 +82,26 @@ def cross_entropy_loss(
     reduction: str = "mean",
 ) -> torch.Tensor:
     """Softmax cross entropy with the weighted-mean reduction of
-    ``nn.CrossEntropyLoss``."""
+    ``nn.CrossEntropyLoss``.
+
+    On a batch split over ranks (``parallel.mesh.rows``) the weighted mean
+    is the global batch's, Σw·nll over Σw of every rank's rows: the rank's
+    Σw·nll is divided by the global Σw (summed over the data group) and
+    scaled by the number of row blocks, so that the mean of the ranks'
+    losses, which the data-parallel step takes, is the one-process loss."""
     logp = torch.log_softmax(_at_least_f32(logits), dim=-1)
     nll = -logp.gather(-1, labels.long()[..., None])[..., 0]
     if class_weights is not None:
         w = _class_vector(class_weights, logits)[labels.long()]
         nll = nll * w
         if reduction == "mean":
-            return nll.sum() / w.sum().clamp_min(1e-12)
+            den = w.sum()
+            split = active_rows()
+            if split is not None:
+                start, count, total, mesh = split
+                if int(mesh.shape["data"]) > 1:
+                    den = all_reduce_sum(den, mesh) * (count / total)
+            return nll.sum() / den.clamp_min(1e-12)
     return _reduce(nll, reduction)
 
 

@@ -28,14 +28,20 @@
 
 Multi-device (one process per device, ``parallel/``): with more than one
 rank the trainer builds a ``(data, model)`` process mesh. Each rank takes its
-rows of every micro-batch (or the loader's ``process_shard`` rows), sums its
-micro-batch gradients in f32, and one ``all_reduce`` a step makes the
-gradients and the loss those of the global batch, so ``grad_norm`` and
-``skip_nonfinite`` decide the same on every rank; batch norm and dropout see
-the global batch (``parallel.mesh.rows``). ``parallel.zero1`` keeps each
-rank's slice of the optimiser moments only. Validation shards the batch;
-inference shards the tile chunks (``inference.data_parallel``) or, with
-``case_shard: auto``, the cases, whose native-eval metrics are merged. Rank 0
+rows of every micro-batch (or the loader's ``process_shard`` rows) by its
+data index, sums its micro-batch gradients in f32, and one ``all_reduce`` a
+step over the data group makes the gradients and the loss those of the
+global batch; batch norm and dropout see the global batch
+(``parallel.mesh.rows``). With a model axis > 1 the model is split over the
+model group (``parallel/tensor_parallel.py``): the ranks of a model group
+hold the same rows, ``grad_norm`` sums the split leaves' squares over the
+group and counts each replicated leaf once, so ``grad_norm`` and
+``skip_nonfinite`` decide the same on every rank. ``parallel.zero1`` keeps
+each rank's slice of the optimiser moments only. Validation shards the
+batch; inference shards the tile chunks (``inference.data_parallel``) or,
+with ``case_shard: auto``, the cases, over the data axis, whose native-eval
+metrics are merged. Checkpoints hold the unsharded layout (a tensor-parallel
+state is gathered when its tree is taken and sliced when loaded); rank 0
 alone writes checkpoints, ``metrics.jsonl`` and TensorBoard.
 """
 
@@ -63,6 +69,11 @@ from multimodal_organ_segmentation_tpu_torch.parallel.mesh import (
     world,
 )
 from multimodal_organ_segmentation_tpu_torch.parallel.mesh import rows as split_rows
+from multimodal_organ_segmentation_tpu_torch.parallel import tensor_parallel as tpar
+from multimodal_organ_segmentation_tpu_torch.models.convert import (
+    gather_state_dict,
+    shard_state_dict,
+)
 from multimodal_organ_segmentation_tpu_torch.models.build import (
     build_model,
     cast_to_compute_dtype,
@@ -121,13 +132,35 @@ class TrainState:
         return dict(self.model.named_parameters())
 
     def tree(self) -> Dict[str, Any]:
-        """The checkpoint tree (live tensors, not copies)."""
-        return {
-            "step": int(self.step),
-            "params": self.model.state_dict(),
-            "opt_state": self.optimizer.state_dict() if self.optimizer is not None else None,
-            "ema_params": self.ema_params,
-        }
+        """The checkpoint tree (live tensors, not copies; the whole model's,
+        gathered over the model group, for a tensor-parallel model: then a
+        collective that every rank calls)."""
+        params = self.model.state_dict()
+        opt = self.optimizer.state_dict() if self.optimizer is not None else None
+        ema = self.ema_params
+        tp = tpar.model_tp(self.model)
+        if tp is not None:
+            plan = self.model.tp_plan
+            params = gather_state_dict(params, plan, tp.mesh)
+            ema = gather_state_dict(ema, plan, tp.mesh) if ema is not None else None
+            if opt is not None:
+                opt = tpar.gather_opt_state(opt, _param_names(self.model), plan, tp.mesh)
+        return {"step": int(self.step), "params": params, "opt_state": opt, "ema_params": ema}
+
+
+def _param_names(model: nn.Module) -> List[str]:
+    """The parameters' names in ``model.parameters()`` order, the optimiser's
+    indices."""
+    return [n for n, _ in model.named_parameters()]
+
+
+def local_state(model: nn.Module, sd: Optional[Mapping[str, torch.Tensor]]):
+    """A whole state dict (or parameter tree) as ``model`` holds it: this
+    rank's shard for a tensor-parallel model, else as it is."""
+    tp = tpar.model_tp(model)
+    if sd is None or tp is None:
+        return sd
+    return shard_state_dict(sd, model.tp_plan, tp.mesh)
 
 
 def _select_tree_params(tree: Mapping[str, Any], config) -> Params:
@@ -188,6 +221,9 @@ def make_train_step(
     """
     params = [p for p in model.parameters() if p.requires_grad]
     data = int(mesh.shape["data"]) if mesh is not None else 1
+    tp = tpar.model_tp(model)
+    split_ids = ({id(p) for n, p in model.named_parameters() if n in model.tp_plan.splits}
+                 if tp is not None else set())
     dropout = _dropout_active(model)
     running = _running_buffers(model) if skip_nonfinite else []
 
@@ -218,13 +254,16 @@ def make_train_step(
                 loss.backward()  # sums into the f32 .grad of the master weights
             loss_sum += loss.detach().float()
         scale = 1.0 / accum_steps
-        grads = [p.grad for p in params if p.grad is not None]
+        held = [p for p in params if p.grad is not None]
+        grads = [p.grad for p in held]
         if data > 1:
-            # one collective a step: the ranks' f32 gradient and loss sums
+            # one collective a step over the data group: the ranks' f32
+            # gradient and loss sums
             all_reduce_([loss_sum] + grads, mesh)
             scale /= data
         torch._foreach_mul_(grads, scale)
-        gnorm = global_norm(grads)
+        gnorm = (global_norm(grads) if tp is None
+                 else tpar.global_norm(grads, [id(p) in split_ids for p in held], tp))
         metrics = {"loss": loss_sum * scale, "grad_norm": gnorm}
         ok = True
         if skip_nonfinite:
@@ -329,8 +368,6 @@ class Trainer:
         else:
             self.mesh = mesh if mesh is not None else (
                 make_mesh(config) if world()[1] > 1 else None)
-        if self.mesh is not None:
-            self.mesh.group("data")  # a tensor-parallel (model > 1) mesh raises here
         self._warned_replicate = False
         self._step_rows = None
 
@@ -403,9 +440,14 @@ class Trainer:
         pretrained = self.config.get("model.pretrained", None)
         if pretrained and not self._resume_from:
             self._import_pretrained(pretrained)
+        adafactor = str(self.config.get("training.optimizer.name", "adamw")).lower() == "adafactor"
+        if adafactor and tpar.model_tp(self.model) is not None:
+            raise NotImplementedError(
+                "tensor parallelism with adafactor is not ported: the factored moments of a "
+                "split leaf are not those of the whole leaf; use adamw, adam or sgd")
         if self._zero1_active():
             # ZeRO-1: each rank keeps 1/data of the moments (parallel/mesh.py)
-            if str(self.config.get("training.optimizer.name", "adamw")).lower() == "adafactor":
+            if adafactor:
                 raise NotImplementedError(
                     "parallel.zero1 with adafactor is not ported: its factored moments are not "
                     "elementwise; use adamw, adam or sgd")
@@ -439,7 +481,7 @@ class Trainer:
             import_torch_checkpoint,
         )
 
-        imported = import_torch_checkpoint(path, self.config)
+        imported = local_state(self.model, import_torch_checkpoint(path, self.config))
         ref = {n: tuple(p.shape) for n, p in self.model.named_parameters()}
         got = {n: tuple(t.shape) for n, t in imported.items()}
         if ref != got:
@@ -473,11 +515,17 @@ class Trainer:
         return self.model.eval()
 
     def _load_tree(self, tree: Mapping[str, Any]) -> None:
-        """Weights, step and (unless frozen) moments of a checkpoint tree."""
-        self.model.load_state_dict(tree["params"])
+        """Weights, step and (unless frozen) moments of a checkpoint tree (the
+        unsharded layout: a tensor-parallel model keeps its slices)."""
+        self.model.load_state_dict(local_state(self.model, tree["params"]))
         self.state.step = int(tree.get("step", 0))
         if self.state.optimizer is not None and tree.get("opt_state"):
-            self.state.optimizer.load_state_dict(tree["opt_state"])
+            opt = tree["opt_state"]
+            tp = tpar.model_tp(self.model)
+            if tp is not None:
+                opt = tpar.shard_opt_state(opt, _param_names(self.model), self.model.tp_plan,
+                                           tp.rank)
+            self.state.optimizer.load_state_dict(opt)
 
     def resume(self, path) -> None:
         ckpt = load_checkpoint(path, map_location=self.device)
@@ -487,7 +535,8 @@ class Trainer:
         want_ema = self.state.ema_params is not None
         have_ema = tree.get("ema_params") is not None
         if want_ema and have_ema:
-            self.state.ema_params = {n: t.to(self.device) for n, t in tree["ema_params"].items()}
+            self.state.ema_params = {n: t.to(self.device) for n, t in
+                                     local_state(self.model, tree["ema_params"]).items()}
         elif want_ema:
             # pre-EMA checkpoint: restart the EMA at the restored weights
             self.state.ema_params = self._fresh_ema()
@@ -538,7 +587,7 @@ class Trainer:
             raise RuntimeError("call init_state first")
         tree = load_checkpoint(path, map_location=self.device)["tree"]
         self._load_tree(tree)
-        ema = tree.get("ema_params")
+        ema = local_state(self.model, tree.get("ema_params"))
         self.state.ema_params = (
             {n: t.to(self.device) for n, t in ema.items()} if ema is not None else None
         )
@@ -1011,7 +1060,7 @@ class Trainer:
         ref = {**dict(self.model.named_parameters()), **dict(self.model.named_buffers())}
         for path in list(self.config.get("inference.ensemble", []) or []):
             tree = load_checkpoint(path, map_location=self.device)["tree"]
-            params = _select_tree_params(tree, self.config)
+            params = local_state(self.model, _select_tree_params(tree, self.config))
             members.append({n: t.to(self.device, ref[n].dtype) for n, t in params.items()
                             if n in ref})
         if len(members) > 1 and self.logger:
@@ -1026,7 +1075,9 @@ class Trainer:
         - ``auto`` (default): in a job of several ranks each predicts
           ``sorted(cases)[rank::world]`` (no tile parallelism then: a rank
           runs its cases on its own device), and native eval merges the ranks' metrics; one
-          process: no shard.
+          process: no shard. With a model axis > 1 the shard is the data
+          index over the data axis: the ranks of a model group run their
+          cases together, and the first of them writes.
         - ``[pid, nproc]``: explicit, for fleets of independent workers
           (e.g. a job array of single-card hosts); each predicts
           ``sorted(cases)[pid::nproc]`` and its results stay partial.
@@ -1051,8 +1102,18 @@ class Trainer:
                 raise ValueError(
                     f"{key}={val!r}: expected 'auto', a [pid, nproc] pair, or a falsy value"
                 )
+        if self.mesh is not None and self.mesh.shape["model"] > 1:
+            # the ranks of a model group run one case together: shard over data
+            size = int(self.mesh.shape["data"])
+            return CaseShard(self.mesh.axis_rank("data"), size, auto=True) if size > 1 else None
         rank, size = world()
         return CaseShard(rank, size, auto=True) if size > 1 else None
+
+    def _model_lead(self) -> bool:
+        """The first rank of its model group (every rank without a model
+        axis): the one that writes the cases its group ran."""
+        return self.mesh is None or self.mesh.shape["model"] == 1 or \
+            self.mesh.axis_rank("model") == 0
 
     def _native_val_dice(self) -> Optional[float]:
         """Mean foreground Dice of the deployed pipeline (sliding-window
@@ -1283,6 +1344,9 @@ class Trainer:
                     if ece is not None else None),
         }
         parts = allgather_payloads(payload)
+        if self.mesh is not None and self.mesh.shape["model"] > 1:
+            # the ranks of a model group scored the same cases: one part each
+            parts = [parts[int(r)] for r in self.mesh.devices[:, 0]]
         for m in (dice, hd, nsd, assd, lesions, ece):
             if m is not None:
                 m.reset()
@@ -1450,7 +1514,7 @@ class Trainer:
                     write_futures.pop(0).result()
                 # ranks that share the cases (tile chunks split over them)
                 # hold the same mask: rank 0 writes it
-                if shard is not None or self._is_writer():
+                if (shard is not None and self._model_lead()) or self._is_writer():
                     write_futures.append(writer.submit(_write))
                 written.append(str(out_file))
             for f in write_futures:

@@ -261,11 +261,3 @@ def config_tp_axis(config) -> Optional[str]:
 
 def deep_supervision(config) -> bool:
     return str(config.get("model.head.type", "conv")) == "deep_supervision"
-
-
-def refuse_tensor_parallel(config) -> None:
-    """Tensor parallelism is left out of the multi-device slice."""
-    if config_tp_axis(config):
-        raise NotImplementedError(
-            "parallel.tp_axis / parallel.mesh.model > 1 (tensor parallelism) is not ported to "
-            "the PyTorch package yet; it comes after the multi-device slice (ROADMAP A)")

@@ -2,8 +2,12 @@
 ``--mode eval`` on native grids, ``--mode train``) and its HTTP service
 (``serving/server.py``, ``--mode serve``) against the JAX package.
 
-A tiny SwinUNETR (the flagship's structure at fs=12, 32³ ROI, 8 classes,
-f32) gets seeded JAX parameters; the port's checkpoint (``tree.pt``) is
+A tiny SwinUNETR (the flagship's structure at fs=12 with one block a
+stage, 32³ ROI, 8 classes, f32; the shifted blocks of depth 2 go through
+the sliding window against JAX in ``tests/test_torch_sliding_window.py``,
+and through the train step against the JAX trainer in
+``tests/test_torch_train_step.py``)
+gets seeded JAX parameters; the port's checkpoint (``tree.pt``) is
 written from the converted ones, so ``--checkpoint`` loads exactly the
 weights the JAX reference runs. Two CT+PET cases of different shapes in one
 tile bucket go through the JAX reference once (shared module fixture):
@@ -85,7 +89,7 @@ def _config(root):
                                   "random_intensity": 0.1}},
         "model": {
             "name": "swin_unetr", "in_channels": 2, "out_channels": CLASSES,
-            "backbone": {"img_size": list(ROI), "feature_size": 12, "depths": [2, 2, 2, 2],
+            "backbone": {"img_size": list(ROI), "feature_size": 12, "depths": [1, 1, 1, 1],
                          "num_heads": [3, 6, 12, 24], "window_size": [6, 6, 6],
                          "scan_blocks": False},
             "fusion": {"type": "cross_attention", "stages": [1, 2, 3]},

@@ -34,7 +34,9 @@ import sys
 from pathlib import Path
 
 import numpy as np
+import pytest
 import torch
+import yaml
 
 import jax
 import jax.numpy as jnp
@@ -55,6 +57,7 @@ from multimodal_organ_segmentation_tpu_torch.models import convert
 from multimodal_organ_segmentation_tpu_torch.ops import sliding_window as tsw
 from multimodal_organ_segmentation_tpu_torch.parallel.mesh import zero1_spec
 from multimodal_organ_segmentation_tpu_torch.train.trainer import Trainer
+from multimodal_organ_segmentation_tpu_torch.utils.config import ConfigNode as PortConfig
 from multimodal_organ_segmentation_tpu_torch.utils.io import load_nifti, save_nifti
 from tests.torch_port_utils import jax_train_steps, no_tf32, seeded_variables
 from tests.torch_port_utils import _one_thread  # noqa: F401
@@ -64,6 +67,7 @@ SPAWN_TIMEOUT = 120
 RING_TOL, RING_GRAD_TOL = 2e-5, 1e-4
 BLEND_TOL, SLICE_TOL, MODEL_TOL = 1e-5, 1e-4, 1e-4
 LOSS_TOL, GNORM_RTOL, STATS_TOL, ZERO1_TOL, METRIC_TOL = 1e-4, 1e-3, 1e-5, 1e-6, 1e-6
+TP_LR, TP_WEIGHT_TOL, RESUME_TOL = 0.1, 1e-4, 1e-6
 K, MICRO = 3, 4  # three steps of a global micro-batch of 4, accumulation 1
 CASES = {"case_a": (20, 18, 22), "case_b": (18, 20, 17), "case_c": (22, 19, 20)}
 AFFINE = np.diag([1.5, 1.2, 2.0, 1.0])
@@ -207,19 +211,144 @@ def _jax_dp_steps(flax_mod, cfg, variables, images, labels):
                            [put(y) for y in labels], 1)
 
 
-def test_ring_attention_on_four_ranks(tmp_path):
+@pytest.fixture(scope="module")
+def models():
+    """The JAX references' models and seeded weights, built once for the
+    module: the tiny cross-attention SwinUNETR and the batch-norm UNet3D,
+    with their port state dicts."""
+    sflax = jswin.build_swin_unetr(JConfig(_swin_cfg()))
+    svars = seeded_variables(sflax, np.zeros((1, 32, 32, 32, 2), np.float32), train=False, seed=7)
+    bflax = junet.build_unet3d(JConfig(_unet_cfg(Path("."))))
+    bvars = seeded_variables(bflax, np.zeros((1, 16, 16, 16, 2), np.float32), train=False, seed=11)
+    return {"swin": (sflax, svars, convert.swin_unetr_params_from_jax(svars)),
+            "unet": (bflax, bvars, convert.params_from_jax("unet3d", bvars["params"],
+                                                           bvars["batch_stats"]))}
+
+
+def _tp_cfg(cfg, name):
+    """``cfg`` on a 2 × 2 grid (model axis 2), trained by SGD with momentum
+    at lr 0.1 over a global batch of 2 (one row a data index)."""
+    return {**cfg, "experiment": {**cfg.get("experiment", {}), "name": name, "seed": 0},
+            "parallel": {"mesh": {"data": -1, "model": 2}},
+            "training": {"batch_size": 2, "accumulation_steps": 1,
+                         "optimizer": {"name": "sgd", "lr": TP_LR, "momentum": 0.9,
+                                       "weight_decay": 0.0},
+                         "loss": {"name": "dice_ce", "dice_weight": 0.5, "ce_weight": 0.5}}}
+
+
+def test_ring_attention_on_four_ranks(tmp_path, models):
+    """Four gloo ranks: the ring over all four; then the same group as a
+    2 × 2 ``(data, model)`` grid with tensor parallelism, each check held to
+    the JAX model with ``tp_axis=None`` on one device: the tiny
+    cross-attention SwinUNETR (fusion at /32 with 2 heads, so kernel B's
+    path splits) and the batch-norm UNet3D, their logits within 1e-4; one
+    TP × DP step of each, loss 1e-4, ``grad_norm`` 1e-3 relative and the
+    gathered weights (and the UNet3D's batch statistics) 1e-4 (SGD: Adam
+    would turn the rounding noise of a gradient that is analytically 0, a
+    conv bias in front of a norm, into steps of up to ±lr, see
+    ``tests/test_torch_train_step.py``); the split layers' parameters a
+    rank equal to the plan's; a one-process checkpoint
+    resumed on the grid (the start of the step) and the step's gathered
+    checkpoint resumed in one process, each giving the other side's logits
+    within 1e-6 of the largest logit (f32: the row-parallel sums add their
+    halves in another order, a few ulps)."""
+    from multimodal_organ_segmentation_tpu_torch.models.build import build_model
+    from multimodal_organ_segmentation_tpu_torch.parallel.tensor_parallel import tp_plan
+    from multimodal_organ_segmentation_tpu_torch.train.checkpoint import save_checkpoint
+
+    no_tf32()
     inp = _ring_inputs(3, 4)
-    procs = start("ring", 4, tmp_path, inp)
+    rng = np.random.default_rng(17)
+    cases = {"swin": (_swin_cfg(), (2, 32, 32, 32)), "unet": (_unet_cfg(tmp_path), (2, 16, 16, 16))}
+    for name, (cfg, shape) in cases.items():
+        x = rng.standard_normal(shape + (2,)).astype(np.float32)
+        y = rng.integers(0, 4, size=shape).astype(np.int64)
+        tcfg = _tp_cfg(cfg, f"tp_{name}")
+        sd = models[name][2]
+        save_checkpoint({"step": 0, "params": sd, "opt_state": None, "ema_params": None},
+                        tmp_path / f"one_{name}_ckpt", epoch=0)
+        inp.update({f"tp_{name}_cfg": tcfg, f"tp_{name}_sd": sd, f"tp_{name}_x": x,
+                    f"tp_{name}_y": y, f"one_{name}_ckpt": str(tmp_path / f"one_{name}_ckpt")})
+    procs = start("four", 4, tmp_path / "work", inp)
+
     ref = _ring_reference(inp, 4)
-    _check_ring(join(procs, tmp_path), ref)
+    jref = {}
+    for name, (flax_mod, variables, sd) in models.items():
+        x, y = inp[f"tp_{name}_x"], inp[f"tp_{name}_y"]
+        cfg = {**inp[f"tp_{name}_cfg"], "parallel": {}}
+        logits = np.asarray(jax.jit(lambda v, a: flax_mod.apply(v, a, train=False))(
+            variables, jnp.asarray(x)))
+        one = build_model(cfg, device="cpu")
+        one.load_state_dict(sd)
+        with torch.no_grad():
+            port_logits = one(torch.from_numpy(x)).numpy()
+        jref[name] = {"logits": logits, "plan": tp_plan(one, 2), "port_logits": port_logits}
+        params, extra, metrics = jax_train_steps(flax_mod, cfg, variables, [x[None]],
+                                                 [y[None].astype(np.int32)], 1)
+        jref[name].update(params=params, extra=extra, metrics=metrics)
+    ranks = join(procs, tmp_path / "work")
+
+    _check_ring(ranks, ref)
+    for rank, r in enumerate(ranks):
+        tp = r["tensor_parallel"]
+        assert tp["grid"] == {"shape": {"data": 2, "model": 2}, "at": divmod(rank, 2),
+                              "model_group": 2, "data_group": 2}
+        for name in ("swin", "unet"):
+            got, want = tp[name], jref[name]
+            np.testing.assert_allclose(got["logits"], want["logits"], rtol=0, atol=MODEL_TOL)
+            plan = want["plan"]
+            full = models[name][2]
+            assert got["split_numel"] * 2 == sum(full[k].numel() for k in plan.splits), name
+            (m,), j = got["metrics"], want["metrics"][0]
+            assert abs(m["loss"] - j["loss"]) <= LOSS_TOL, (name, m, j)
+            assert abs(m["grad_norm"] - j["grad_norm"]) <= GNORM_RTOL * j["grad_norm"], (name, m, j)
+            if name == "swin":
+                stepped = convert.swin_unetr_params_from_jax({"params": want["params"]})
+                assert stepped.keys() == got["params"].keys()
+                for k, w in stepped.items():
+                    np.testing.assert_allclose(got["params"][k].numpy(), w.numpy(), rtol=0,
+                                               atol=TP_WEIGHT_TOL, err_msg=f"{name} {k}")
+                assert got["kinds"].count("heads") == 3 + 1  # stages 1-3 and the /32 fusion
+            else:
+                back, stats = convert.params_to_jax("unet3d", got["params"])
+                for tree, jtree in ((back, want["params"]),
+                                    (stats, want["extra"]["batch_stats"])):
+                    for (path, w), (_, g) in zip(jax.tree_util.tree_leaves_with_path(jtree),
+                                                 jax.tree_util.tree_leaves_with_path(tree)):
+                        np.testing.assert_allclose(g, np.asarray(w), rtol=0, atol=TP_WEIGHT_TOL,
+                                                   err_msg=f"{name} {jax.tree_util.keystr(path)}")
+            # the one-process checkpoint resumed on the grid gives its logits
+            scale = RESUME_TOL * np.abs(want["port_logits"]).max()
+            np.testing.assert_allclose(got["logits"], want["port_logits"], rtol=0, atol=scale)
+    for name in ("swin", "unet"):
+        # the grid's checkpoint (the whole layout, moments too) resumed in one process
+        cfg = {**_tp_cfg(cases[name][0], f"one_{name}"), "parallel": {}}
+        cfg["experiment"]["output_dir"] = str(tmp_path)
+        one = Trainer(cfg, device="cpu", resume_from=str(tmp_path / "work" / f"tp_{name}_ckpt"))
+        one.init_state()
+        for p in one.model.parameters():
+            assert one.state.optimizer.inner.state[p]["momentum_buffer"].shape == p.shape
+        one.model.eval()
+        with torch.no_grad():
+            logits = one.model(torch.from_numpy(inp[f"tp_{name}_x"])).numpy()
+        for r in ranks:
+            after = r["tensor_parallel"][name]["after"]
+            np.testing.assert_allclose(logits, after, rtol=0,
+                                       atol=RESUME_TOL * np.abs(after).max(), err_msg=name)
 
 
-def test_two_ranks_against_the_jax_mesh(tmp_path):
+def test_two_ranks_against_the_jax_mesh(tmp_path, models):
     """One gloo group of two ranks: the ring, the tile-sharded sliding window
     and the runner's mesh, the DualEncoder's ring, data-parallel and ZeRO-1
-    training with resume, dropout rows, ``case_shard: auto`` predict and
-    merged native eval; each against the JAX package on a 2-device mesh (or
-    one process where the JAX package runs one)."""
+    training with resume, dropout rows, the class-weighted cross entropy,
+    ``case_shard: auto`` predict and merged native eval; each against the JAX
+    package on a 2-device mesh (or one process where the JAX package runs
+    one). Then the multi-rank service: rank 0 answers over HTTP with the
+    one-process service's mask, stats and the stop reach both ranks, and a
+    follower whose rank 0 falls silent raises at its receive's timeout."""
+    from multimodal_organ_segmentation_tpu_torch.serving.server import InferenceService
+    from multimodal_organ_segmentation_tpu_torch.train.checkpoint import save_checkpoint
+
     no_tf32()
     root = tmp_path
     inp = _ring_inputs(2, 2)
@@ -227,12 +356,11 @@ def test_two_ranks_against_the_jax_mesh(tmp_path):
 
     # the weights and inputs first: the ranks start while the JAX references run
     scfg = _swin_cfg()  # the tile-sharded sliding window of a tiny cross-attention SwinUNETR
-    sflax = jswin.build_swin_unetr(JConfig(scfg))
-    svars = seeded_variables(sflax, np.zeros((1, 32, 32, 32, 2), np.float32), train=False, seed=7)
+    sflax, svars, ssd = models["swin"]
     vol = np.random.default_rng(8).standard_normal((40, 40, 40, 2)).astype(np.float32)
     sw = ((32, 32, 32), 4, 0.5, 3)  # 8 tiles, chunks of 3: 3 chunks padded to 4
     blend_w = np.random.default_rng(15).standard_normal((2, 4)).astype(np.float32)
-    inp.update(swin_cfg=scfg, swin_sd=convert.swin_unetr_params_from_jax(svars), swin_volume=vol,
+    inp.update(swin_cfg=scfg, swin_sd=ssd, swin_volume=vol,
                swin_sw=sw, blend_w=blend_w)
     # the DualEncoder with sequence_axis "data": the JAX model on the mesh
     dcfg = {"experiment": {"seed": 0}, "data": {"modalities": ["CT", "PET"]},
@@ -254,12 +382,20 @@ def test_two_ranks_against_the_jax_mesh(tmp_path):
     inp.update(de_cfg=dcfg, de_sd=dsd, de_x=x, de_y=dy, de_volume=dvol, de_sw=dsw)
     # data-parallel training of a batch-norm UNet3D, and a dropout model
     bcfg = _unet_cfg(root)
-    bflax = junet.build_unet3d(JConfig(bcfg))
-    bvars = seeded_variables(bflax, np.zeros((1, 16, 16, 16, 2), np.float32), train=False, seed=11)
+    bflax, bvars, bsd = models["unet"]
     rng = np.random.default_rng(12)
     images = rng.standard_normal((K, 1, MICRO, 16, 16, 16, 2)).astype(np.float32)
     labels = rng.integers(0, 4, size=(K, 1, MICRO, 16, 16, 16)).astype(np.int32)
-    bsd = convert.params_from_jax("unet3d", bvars["params"], bvars["batch_stats"])
+    # the class-weighted cross entropy over two row blocks of other label
+    # mixes: rank 0's rows mostly background, rank 1's mostly class 3, so the
+    # ranks' sums of weights differ
+    wlabels = labels[:1].copy()
+    wlabels[:, :, :MICRO // 2][rng.random(wlabels[:, :, :MICRO // 2].shape) < 0.8] = 0
+    wlabels[:, :, MICRO // 2:][rng.random(wlabels[:, :, MICRO // 2:].shape) < 0.8] = 3
+    wcfg = {**bcfg, "training": {**bcfg["training"],
+                                 "loss": {**bcfg["training"]["loss"],
+                                          "class_weights": [0.2, 1.0, 2.0, 4.0]}}}
+    inp.update(weighted_cfg=wcfg, weighted_labels=wlabels)
     drop_cfg = _unet_cfg(root, norm="instance", dropout=0.3)
     dropvars = seeded_variables(junet.build_unet3d(JConfig(drop_cfg)),
                                 np.zeros((1, 16, 16, 16, 2), np.float32), train=False, seed=13)
@@ -274,6 +410,17 @@ def test_two_ranks_against_the_jax_mesh(tmp_path):
               "inference": {**bcfg["inference"], "save_probabilities": True, "batch_size": 4,
                             "sliding_window": {"roi_size": [8, 8, 8], "overlap": 0.5}}}
     inp.update(de_predict_cfg=depcfg)
+    # the multi-rank service: the batch-norm UNet3D's checkpoint, one case
+    save_checkpoint({"step": 0, "params": bsd, "opt_state": None, "ema_params": None},
+                    root / "serve_ckpt", epoch=0)
+    serve_cfg = {**icfg, "experiment": {**icfg["experiment"], "name": "serve"}}
+    serve_case = {m: str(root / "input" / m.lower() / "case_a.nii.gz") for m in ("CT", "PET")}
+    inp.update(serve_cfg=serve_cfg, serve_ckpt=str(root / "serve_ckpt"), serve_case=serve_case)
+    # --mode serve through cli.main on both ranks (the CLI joins the group)
+    cli_cfg = {**serve_cfg, "experiment": {**serve_cfg["experiment"], "name": "serve_cli",
+                                           "log_dir": str(root / "work" / "logs")}}
+    (root / "serve_cli.yaml").write_text(yaml.safe_dump(cli_cfg))
+    inp.update(serve_cli_config=str(root / "serve_cli.yaml"), serve_cli_name="serve_cli")
     procs = start("main", 2, root / "work", inp)
 
     refs = {"ring": _ring_reference(inp, 2)}
@@ -289,6 +436,7 @@ def test_two_ranks_against_the_jax_mesh(tmp_path):
     refs["de"] = np.asarray(jax.jit(lambda v, x: dflax.apply(v, x, train=False))(
         dvars, jnp.asarray(x)))
     _, jextra, jmetrics = _jax_dp_steps(bflax, bcfg, bvars, images, labels)
+    _, _, jweighted = _jax_dp_steps(bflax, wcfg, bvars, images[:1], wlabels)
     spacing = tuple(np.sqrt((load_nifti(root / "input" / "ct" / "case_a.nii.gz",
                                         return_affine=True)[1][:3, :3] ** 2).sum(0)).tolist())
     refs["eval"] = _jax_eval_reference(bflax, bvars, bcfg, cases, case_labels, spacing)
@@ -305,6 +453,9 @@ def test_two_ranks_against_the_jax_mesh(tmp_path):
         refs["de_sw"] = tsw.sliding_window_inference(
             torch.from_numpy(dvol), one.model, dsw[0], dsw[1], dsw[2], dsw[3]).numpy()
     one.predict(root / "input", root / "de_pred_one")
+    served_one = InferenceService(PortConfig(serve_cfg), str(root / "serve_ckpt"),
+                                  device="cpu").segment(
+        serve_case, output_dir=str(root / "served_one"), case_id="served", probabilities=True)
 
     ranks = join(procs, root / "work")
 
@@ -369,6 +520,10 @@ def test_two_ranks_against_the_jax_mesh(tmp_path):
         for a, b in zip(t["drop_dp"], t["drop_one"]):
             assert abs(a["loss"] - b["loss"]) <= 1e-6 and abs(a["grad_norm"] - b["grad_norm"]) <= \
                 1e-5 * b["grad_norm"], (t["drop_dp"], t["drop_one"])
+        # the weighted cross entropy divides the global Σw·nll by the global Σw
+        (w,), (j,) = t["weighted"], jweighted
+        assert abs(w["loss"] - j["loss"]) <= LOSS_TOL, (w, j)
+        assert abs(w["grad_norm"] - j["grad_norm"]) <= GNORM_RTOL * j["grad_norm"], (w, j)
     for k in train[0]["dp_state"]:  # the ranks end with the same weights
         assert torch.equal(train[0]["dp_state"][k], train[1]["dp_state"][k]), k
         assert torch.equal(train[0]["z1_state"][k], train[1]["z1_state"][k]), k
@@ -389,6 +544,32 @@ def test_two_ranks_against_the_jax_mesh(tmp_path):
         np.testing.assert_allclose(m["dice_per_class"], refs["eval"]["dice_per_class"],
                                    rtol=0, atol=METRIC_TOL)
 
+    # the multi-rank service: rank 0's answer is the one-process service's
+    zero, one_rank = ranks[0]["serve"], ranks[1]["serve"]
+    assert zero["mesh"] == one_rank["mesh"] == {"data": 2, "model": 1}
+    assert {int(c): n for c, n in zero["segment"]["class_voxels"].items()} == \
+        served_one["class_voxels"]
+    np.testing.assert_array_equal(load_nifti(root / "work" / "served" / "served_pred.nii.gz"),
+                                  load_nifti(root / "served_one" / "served_pred.nii.gz"))
+    np.testing.assert_allclose(load_nifti(root / "work" / "served" / "served_prob.nii.gz"),
+                               load_nifti(root / "served_one" / "served_prob.nii.gz"),
+                               rtol=0, atol=BLEND_TOL)
+    assert zero["stats"]["requests"] == 1 and zero["stats"]["warmups"] == 1
+    assert zero["stats"]["mesh"] == {"data": 2, "model": 1}
+    # the warm-up and the request reached the follower, and the stop ended it
+    assert one_rank["passes"] == 2 and one_rank["stats"]["requests"] == 1
+    waited, err = one_rank["timeout"]
+    assert 1.5 <= waited < 30, (waited, err)
+    # --mode serve through the CLI on both ranks: rank 0 answers, SIGTERM
+    # drains it, and its stop ends rank 1's loop
+    zero, one_rank = ranks[0]["serve_cli"], ranks[1]["serve_cli"]
+    assert zero["segment"]["shape"] == list(CASES["case_a"])
+    assert {int(c): n for c, n in zero["segment"]["class_voxels"].items()} == \
+        served_one["class_voxels"]
+    assert zero["stats"]["mesh"] == {"data": 2, "model": 1} and zero["stats"]["requests"] == 1
+    assert "SIGTERM: draining" in zero["log"] and "final stats" in zero["log"]
+    assert "stop after 1 passes" in one_rank["log"], one_rank["log"][-2000:]
+
 
 def _torchrun(root, mode, *extra):
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "2",
@@ -406,10 +587,10 @@ def test_cli_modes_under_torchrun(tmp_path):
     path: ``case_shard: false``), its probabilities within 1e-5 of the
     one-process CLI's and its masks equal wherever the top-2 margin exceeds
     twice that; native eval with ``case_shard: auto`` written once, its metrics
-    equal to the one-process CLI's."""
+    equal to the one-process CLI's. ``--mode serve`` over two ranks runs in
+    the 2-rank spawn (``torch_dist_worker.serve_cli``), through the same
+    ``cli.main``."""
     import json
-
-    import yaml
 
     root = tmp_path
     cases, _ = _write_cases(root)

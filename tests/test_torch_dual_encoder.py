@@ -209,7 +209,7 @@ def test_sequence_axis_is_dropped_on_one_device_and_refused_across_processes(mon
     assert model.mesh.shape == {"data": 2, "model": 1} and hasattr(model, "fusion_xattn0")
     assert model.fusion_xattn1.mesh is model.mesh
     cfg["parallel"] = {"mesh": {"data": 1, "model": 2}, "sequence_axis": "model"}
-    with pytest.raises(NotImplementedError, match="tensor parallelism"):
+    with pytest.raises(ValueError, match="data axis only"):
         build_model(cfg, device="cpu")
 
 

@@ -90,6 +90,7 @@ FAMILIES = {
 }
 _CACHE = {}
 _JAX_CAMS = {}
+_JAX_MAPS = {}
 
 
 @pytest.fixture(autouse=True)
@@ -154,6 +155,17 @@ def jax_cam(family, cam="GradCAM"):
     return _JAX_CAMS[key]
 
 
+def jax_map(family, cam="GradCAM"):
+    """``cam``'s map of ``family``'s tile by the JAX package
+    (``generate(x, class_idx=1)``), computed once: on one tile the JAX
+    package's ``generate_native`` blends that tile alone, so the native
+    one-tile test shares it."""
+    if (family, cam) not in _JAX_MAPS:
+        _, _, _, x = pair(family)
+        _JAX_MAPS[family, cam] = jax_cam(family, cam).generate(jnp.asarray(x), 1)
+    return _JAX_MAPS[family, cam]
+
+
 def _rel(a, b):
     return float(np.abs(np.asarray(a) - np.asarray(b)).max() / np.abs(np.asarray(a)).max())
 
@@ -181,7 +193,7 @@ def test_perturbation_names_sort_as_flax_flattens():
 def test_gradcam_generate_matches_jax(family, cam):
     _, _, model, x = pair(family)
     target = FAMILIES[family][2]
-    ref = jax_cam(family, cam).generate(jnp.asarray(x), 1)
+    ref = jax_map(family, cam)
     out = {"GradCAM": GradCAM, "GradCAMPlusPlus": GradCAMPlusPlus}[cam](model, [target]).generate(
         x, class_idx=1)
     assert list(out) == [target] and out[target].shape == x.shape[1:4]
@@ -213,18 +225,21 @@ def test_swin_maps_are_within_1e_5_of_float64(cam):
 @pytest.mark.parametrize("volume", ["one_tile", "several_tiles"])
 @pytest.mark.parametrize("family", ["unet3d", "swin_unetr", "dual_encoder"])
 def test_gradcam_native_matches_jax(family, volume):
-    """On one tile the blend equals ``generate`` on the volume; on several,
-    JAX's blend."""
+    """On one tile the blend equals ``generate`` on the volume, and the JAX
+    package's map of that tile is the reference (its ``generate_native`` of
+    one tile blends that tile alone: the map ``jax_map`` shares with the
+    ``generate`` test); on several, JAX's blend."""
     _, _, model, x = pair(family)
     target = FAMILIES[family][2]
     roi = x.shape[1:4]
     if volume == "one_tile":
         vol = x[0]
+        ref = jax_map(family)
     else:
         vol = np.random.default_rng(6).normal(
             size=(roi[0] + 8, roi[1] + 4, roi[2], 2)).astype(np.float32)
-    ref = jax_cam(family).generate_native(
-        vol, class_idx=1, roi_size=roi, overlap=0.5, sw_batch_size=2)
+        ref = jax_cam(family).generate_native(
+            vol, class_idx=1, roi_size=roi, overlap=0.5, sw_batch_size=2)
     out = GradCAM(model, [target]).generate_native(vol, class_idx=1, roi_size=roi, overlap=0.5,
                                                    sw_batch_size=2)
     assert out[target].shape == vol.shape[:3] and out[target].max() > 0.99

@@ -50,7 +50,7 @@ def test_port_and_chip_smoke_import_no_jax():
                 "preprocessing.dicom", "preprocessing.dicom_converter", "preprocessing.normalizer",
                 "preprocessing.suv_calculator", "preprocessing.registration",
                 "preprocessing.resample", "parallel", "parallel.mesh", "parallel.multihost",
-                "parallel.ring_attention"):
+                "parallel.ring_attention", "parallel.tensor_parallel"):
         assert f"{pkg}.{new}" in mods, new
     code = (
         "import importlib, json, sys\n"

@@ -32,6 +32,14 @@ from tests.torch_port_utils import _one_thread, no_tf32  # noqa: F401
 ROI = (32, 32, 32)
 
 
+def _swin_config(root):
+    """The CLI tests' SwinUNETR with two blocks a stage (a shifted block in
+    each): the program holds 8 window attentions."""
+    cfg = _config(root)
+    cfg["model"]["backbone"]["depths"] = [2, 2, 2, 2]
+    return cfg
+
+
 def _unet_config(root):
     cfg = _config(root)
     cfg["model"] = {"name": "unet3d", "in_channels": 2, "out_channels": 4,
@@ -57,7 +65,7 @@ def world(tmp_path_factory):
     no_tf32()
     root = tmp_path_factory.mktemp("export")
     out = {}
-    for name, cfg in (("unet3d", _unet_config(root)), ("swin_unetr", _config(root))):
+    for name, cfg in (("unet3d", _unet_config(root)), ("swin_unetr", _swin_config(root))):
         model = _seeded(build_model(ConfigNode(cfg), device="cpu"), 7).eval()
         ckpt = root / f"{name}_ckpt"
         save_checkpoint({"step": 0, "params": model.state_dict(), "opt_state": None,

@@ -68,14 +68,16 @@ def test_runner_counts_buckets_and_refuses_a_mesh():
         runner(torch.zeros((*shape, 2)), w)
     # (30, 30, 30) and (31, 32, 25) share the bucket (32, 32, 32)
     assert runner.num_compiled == 3
-    # a mesh of one rank splits nothing: the same logits, bit for bit; a
-    # tensor-parallel mesh (model axis > 1) is refused
+    # a mesh of one rank splits nothing: the same logits, bit for bit; so
+    # does a tensor-parallel mesh of one data index (model axis 2): the
+    # chunks split over the data axis only, and this rank runs them all
     one = tsw.SlidingWindowRunner(_t_predict, ROI, CLASSES, sw_batch_size=4, mesh=make_mesh())
     vol = torch.from_numpy(np.random.default_rng(3).normal(size=(31, 32, 25, 2)).astype(np.float32))
     assert torch.equal(one(vol, w), runner(vol, w))
-    with pytest.raises(NotImplementedError, match="tensor parallelism"):
-        tsw.SlidingWindowRunner(_t_predict, ROI, CLASSES,
-                                mesh=make_mesh({"parallel.mesh": {"model": 2}}, devices=[0, 1]))
+    tp = tsw.SlidingWindowRunner(_t_predict, ROI, CLASSES, sw_batch_size=4,
+                                 mesh=make_mesh({"parallel.mesh": {"model": 2}}, devices=[0, 1]))
+    assert tp._chunk_multiple() == 1
+    assert torch.equal(tp(vol, w), runner(vol, w))
 
 
 @pytest.mark.parametrize("shape", [(192, 192, 256), (160, 176, 224), (128, 128, 112),

@@ -255,8 +255,11 @@ def test_unported_options_raise(tmp_path):
         assert torch.equal(model.state_dict()[key], value), key
     cfg = _model_config()
     cfg["parallel"] = {"mesh": {"data": 1, "model": 2}}
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        build_model(cfg, device="cpu")
+    # one process: the whole model, as the JAX model runs outside a mesh
+    tp = build_model(cfg, device="cpu", generator=torch.Generator().manual_seed(3))
+    assert getattr(tp, "tp", None) is None
+    assert {k: v.shape for k, v in tp.state_dict().items()} == \
+        {k: v.shape for k, v in plain.state_dict().items()}
     cfg = _model_config()
     cfg["model"]["name"] = "unet4d"
     with pytest.raises(ValueError, match="Unknown model"):

@@ -2,7 +2,7 @@
 trainer's, from one init carried across with ``swin_unetr_params_from_jax``.
 
 fs=12 SwinUNETR with cross-attention fusion at 32³, adamw + ``dice_ce``,
-2 micro-batches of 1 patch a step, f32 on the CPU (where the port's
+K = 3 steps of 2 micro-batches of 1 patch, f32 on the CPU (where the port's
 attention runs the kernels' plain versions under the same
 ``autograd.Function``s the card uses).
 
@@ -59,13 +59,13 @@ GNORM_RTOL = 1e-3
 WEIGHT_TOL = 1e-4
 
 
-def _config(remat=False, ema=0.0, skip=False, scan_blocks=False):
+def _config(remat=False, ema=0.0, skip=False, scan_blocks=False, depths=(2, 2, 2, 2)):
     return {
         "experiment": {"seed": 0},
         "data": {"modalities": ["CT", "PET"]},
         "model": {
             "name": "swin_unetr", "in_channels": 2, "out_channels": 8,
-            "backbone": {"img_size": [32, 32, 32], "feature_size": 12, "depths": [2, 2, 2, 2],
+            "backbone": {"img_size": [32, 32, 32], "feature_size": 12, "depths": list(depths),
                          "num_heads": [3, 6, 12, 24], "window_size": [6, 6, 6],
                          "scan_blocks": scan_blocks},
             "fusion": {"type": "cross_attention", "stages": [1, 2, 3]},
@@ -94,6 +94,20 @@ def init_variables():
     flax_mod = jswin.build_swin_unetr(JConfigNode(_config()))
     x = np.zeros((1, 32, 32, 32, 2), np.float32)
     return seeded_variables(flax_mod, x, train=False, seed=31)
+
+
+# The step's own rules (skipping, EMA, dropout draws) do not depend on the
+# model's depth: those tests take one block a stage. The shifted-window
+# blocks of the second half of each stage are held to the JAX trainer by
+# the K-step tests above.
+LIGHT = (1, 1, 1, 1)
+
+
+@pytest.fixture(scope="module")
+def light_variables():
+    flax_mod = jswin.build_swin_unetr(JConfigNode(_config(depths=LIGHT)))
+    return seeded_variables(flax_mod, np.zeros((1, 32, 32, 32, 2), np.float32), train=False,
+                            seed=31)
 
 
 def _torch_setup(cfg, variables):
@@ -142,8 +156,14 @@ def jax_run(init_variables):
 
 @pytest.fixture(scope="module")
 def torch_run(init_variables):
+    """The port's K steps, under torch's deterministic algorithms: the remat
+    test holds its own run to these bit for bit."""
     images, labels = _batches()
-    return _torch_run(_config(), init_variables, images, labels)
+    torch.use_deterministic_algorithms(True)
+    try:
+        return _torch_run(_config(), init_variables, images, labels)
+    finally:
+        torch.use_deterministic_algorithms(False)
 
 
 def test_k_step_losses_and_grad_norms_match_the_jax_trainer(jax_run, torch_run):
@@ -187,16 +207,16 @@ def test_k_step_updated_weights_match_the_jax_trainer(jax_run, torch_run, init_v
     assert den ** 0.5 > 0.1 * K * LR * sum(np.size(i) for i in init) ** 0.5
 
 
-def test_remat_on_equals_remat_off_exactly(init_variables):
+def test_remat_on_equals_remat_off_exactly(init_variables, torch_run):
     """Recomputing a block's forward changes no bit of the step. The gather
     of the relative-position bias has a scatter-add for a backward, whose
     order varies from run to run on its own, so both runs use torch's
-    deterministic algorithms."""
+    deterministic algorithms; the run without remat is ``torch_run``."""
     images, labels = _batches()
+    state_off, m_off = torch_run
     torch.use_deterministic_algorithms(True)
     try:
-        state_off, m_off = _torch_run(_config(), init_variables, images[:2], labels[:2])
-        state_on, m_on = _torch_run(_config(remat=True), init_variables, images[:2], labels[:2])
+        state_on, m_on = _torch_run(_config(remat=True), init_variables, images, labels)
     finally:
         torch.use_deterministic_algorithms(False)
     assert state_on.model.use_remat and not state_off.model.use_remat
@@ -227,9 +247,9 @@ def test_attention_parameters_get_gradients(init_variables):
     assert checked == 8 + 16 + 2 * 6
 
 
-def test_skip_nonfinite_leaves_params_moments_and_ema_untouched(init_variables):
-    cfg = _config(ema=0.9, skip=True)
-    state, step = _torch_setup(cfg, init_variables)
+def test_skip_nonfinite_leaves_params_moments_and_ema_untouched(light_variables):
+    cfg = _config(ema=0.9, skip=True, depths=LIGHT)
+    state, step = _torch_setup(cfg, light_variables)
     images, labels = _batches()
     state, m = step(state, torch.from_numpy(images[0]), torch.from_numpy(labels[0]).long())
     assert float(m["skipped"]) == 0.0
@@ -253,11 +273,11 @@ def test_skip_nonfinite_leaves_params_moments_and_ema_untouched(init_variables):
     assert float(m["skipped"]) == 0.0 and np.isfinite(float(m["loss"]))
 
 
-def test_ema_rule_and_infer_param_selection(init_variables):
+def test_ema_rule_and_infer_param_selection(light_variables):
     """e ← d·e + (1−d)·p from e₀ = p₀, on the params after the update."""
     d = 0.9
-    cfg = _config(ema=d)
-    state, step = _torch_setup(cfg, init_variables)
+    cfg = _config(ema=d, depths=LIGHT)
+    state, step = _torch_setup(cfg, light_variables)
     images, labels = _batches()
     p0 = {n: p.detach().clone() for n, p in state.model.named_parameters()}
     for n in p0:
@@ -279,18 +299,18 @@ def test_wrong_accumulation_count_raises(init_variables):
         step(state, torch.from_numpy(images[0][:1]), torch.from_numpy(labels[0][:1]).long())
 
 
-def test_dropout_draws_follow_the_step_key(init_variables):
+def test_dropout_draws_follow_the_step_key(light_variables):
     """With an active dropout the step's key decides the draws, and torch's
     global generator is left where it was."""
     from multimodal_organ_segmentation_tpu_torch.utils.prng import KeyStream
 
-    cfg = _config()
+    cfg = _config(depths=LIGHT)
     cfg["model"]["head"]["dropout"] = 0.2
     images, labels = _batches()
     x, y = torch.from_numpy(images[0]), torch.from_numpy(labels[0]).long()
 
     def first_loss(key):
-        state, step = _torch_setup(cfg, init_variables)
+        state, step = _torch_setup(cfg, light_variables)
         torch.manual_seed(123)
         before = torch.get_rng_state()
         _, m = step(state, x, y, key)

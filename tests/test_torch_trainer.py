@@ -1,9 +1,12 @@
 """The port's ``Trainer`` on the CPU: two epochs on a synthetic NIfTI
 dataset, checkpoints, mid-epoch resume, and ``freeze_for_inference``.
 
-The model is the flagship structure at fs=12 on 32³ volumes (the synthetic
-generator's size, so no resize is needed: the transform graph is not ported
-yet). Tolerances: a resumed run repeats the uninterrupted run's step losses
+The model is the flagship structure at fs=12 with one block a stage on 32³
+volumes (the synthetic generator's size, so no resize is needed: the
+transform graph is not ported yet). These checks hold the trainer to its own
+rules (resume, freeze), which do not depend on depth; the train step through
+the shifted-window blocks of depth 2 is held to the JAX trainer in
+``tests/test_torch_train_step.py``. Tolerances: a resumed run repeats the uninterrupted run's step losses
 exactly (the same ops on the same restored bits, deterministic algorithms
 on); the frozen model equals slice 1's ``build_model`` with the same weights
 bit for bit.
@@ -61,7 +64,7 @@ def _config(data_root, out_dir, name, **training):
                  "augmentation": {"enabled": False}},
         "model": {
             "name": "swin_unetr", "in_channels": 2, "out_channels": 8,
-            "backbone": {"img_size": [32, 32, 32], "feature_size": 12, "depths": [2, 2, 2, 2],
+            "backbone": {"img_size": [32, 32, 32], "feature_size": 12, "depths": [1, 1, 1, 1],
                          "num_heads": [3, 6, 12, 24], "window_size": [6, 6, 6]},
             "fusion": {"type": "cross_attention", "stages": [1, 2, 3]},
             "head": {"type": "conv", "dropout": 0.0},
@@ -198,9 +201,11 @@ def test_freeze_for_inference_is_the_serving_model(full_run, data_root, tmp_path
 
 
 def test_later_slices_raise_by_name(data_root, tmp_path):
-    """What later slices bring raises by name: a tensor-parallel mesh, ZeRO-1
-    with adafactor's factored moments. Meshes, ZeRO-1 and multi-process case
-    shards now run (``tests/test_torch_distributed.py``). TensorBoard, epoch
+    """What later slices bring raises by name: ZeRO-1 with adafactor's
+    factored moments. Meshes, ZeRO-1, tensor parallelism and multi-process
+    case shards now run (``tests/test_torch_distributed.py``): a
+    tensor-parallel mesh given to a trainer in one process builds the whole
+    model. TensorBoard, epoch
     profiles and reference-weight import now
     run (``test_tensorboard_and_profile_of_a_run``,
     ``test_torch_reference_checkpoint.py``); the evaluation slice's parts
@@ -208,8 +213,8 @@ def test_later_slices_raise_by_name(data_root, tmp_path):
     too: ``test_torch_cli.py`` and ``test_torch_transforms.py`` hold them to
     the JAX package."""
     cfg = _config(data_root, tmp_path, "later")
-    with pytest.raises(NotImplementedError, match="tensor parallelism"):
-        Trainer(cfg, device="cpu", mesh=make_mesh({"parallel.mesh": {"model": 2}}, devices=[0, 1]))
+    tp = Trainer(cfg, device="cpu", mesh=make_mesh({"parallel.mesh": {"model": 2}}, devices=[0, 1]))
+    assert tp.mesh.shape == {"data": 1, "model": 2} and getattr(tp.model, "tp", None) is None
     bad = _config(data_root, tmp_path, "later2")
     bad.set("parallel.zero1", True)
     bad.set("training.optimizer.name", "adafactor")

@@ -139,3 +139,14 @@ def test_tune_mode_through_the_cli(tune_cfg, tmp_path):
     assert yaml.safe_load(profile.read_text())["inference"]["batch_size"] == 2
     sidecar = json.loads((tmp_path / "tuned.yaml.report.json").read_text())
     assert sidecar[0]["vol_per_min"] > 0
+
+
+def test_tune_runs_as_one_process(tune_cfg, monkeypatch):
+    """In a job of several ranks the tuner raises and says why, before it
+    builds anything: a candidate that fails on one rank would leave the
+    others waiting in its collectives."""
+    from multimodal_organ_segmentation_tpu_torch.parallel import mesh as tmesh
+
+    monkeypatch.setattr(tmesh, "world", lambda: (0, 2))
+    with pytest.raises(RuntimeError, match="runs as one process"):
+        tuner.tune_serving(tune_cfg, device="cpu")

@@ -1,5 +1,6 @@
 """One rank of the gloo process groups that ``tests/test_torch_distributed.py``
-spawns.
+spawns: two ranks (``main``) or four (``four``, a 2 × 2 ``(data, model)``
+grid for the tensor-parallel checks).
 
     python -m tests.torch_dist_worker TASK RANK WORLD RENDEZVOUS_FILE WORK_DIR
 
@@ -167,7 +168,9 @@ def _steps(trainer, images, labels):
 def train(inp, work):
     """Data-parallel AdamW steps of the batch-norm UNet3D, replicated and
     ZeRO-1; ZeRO-1's shard sizes and a save → resume round trip; a dropout
-    model's DP step against the one-process step on the whole batch."""
+    model's DP step against the one-process step on the whole batch; a step
+    of the class-weighted cross entropy whose two row blocks hold different
+    label mixes."""
     from multimodal_organ_segmentation_tpu_torch.train.checkpoint import save_checkpoint
 
     cfg, sd, images, labels = inp["bn_cfg"], inp["bn_sd"], inp["images"], inp["labels"]
@@ -211,6 +214,165 @@ def train(inp, work):
     one = _trainer(dcfg, dsd, work, "drop1", mesh=False)
     out["drop_dp"] = _steps(drop, images[:1], labels[:1])
     out["drop_one"] = _steps(one, images[:1], labels[:1])
+    weighted = _trainer(inp["weighted_cfg"], sd, work, "weighted")
+    out["weighted"] = _steps(weighted, images[:1], inp["weighted_labels"])
+    return out
+
+
+def serve(inp, work):
+    """The multi-rank service: every rank builds ``InferenceService`` on the
+    checkpoint, rank 0 answers a warm-up and a request over HTTP and reads
+    ``/v1/stats``, then drains and stops the follower, whose loop returns
+    the passes it ran. Then a follower whose rank 0 sends nothing (no
+    heartbeat) raises at its receive's timeout."""
+    import json
+    import threading
+    import time
+    import urllib.request
+
+    from multimodal_organ_segmentation_tpu_torch.serving import server as srv
+    from multimodal_organ_segmentation_tpu_torch.utils.config import ConfigNode
+
+    cfg = inp["serve_cfg"]
+    srv.FOLLOWER_TIMEOUT_S = 4.0
+    service = srv.InferenceService(ConfigNode(cfg), inp["serve_ckpt"], device="cpu")
+    out = {"mesh": service.mesh_shape}
+    if dist.get_rank() == 0:
+        httpd = srv.make_server(service, "127.0.0.1", 0)
+        threading.Thread(target=httpd.serve_forever, daemon=True).start()
+        url = f"http://127.0.0.1:{httpd.server_address[1]}"
+
+        def post(path, body):
+            req = urllib.request.Request(url + path, json.dumps(body).encode(),
+                                         {"Content-Type": "application/json"})
+            return json.loads(urllib.request.urlopen(req, timeout=60).read())
+
+        post("/v1/warmup", {"shape": [20, 18, 22]})
+        time.sleep(2.5)  # idle past a heartbeat period: the follower hears pings
+        out["segment"] = post("/v1/segment", {"inputs": inp["serve_case"], "case_id": "served",
+                                              "output_dir": str(work / "served"),
+                                              "probabilities": True})
+        out["stats"] = json.loads(urllib.request.urlopen(url + "/v1/stats", timeout=60).read())
+        httpd.shutdown()
+        httpd.server_close()
+        service.close()
+    else:
+        out["passes"] = service.follow()
+        out["stats"] = service.stats()
+    # a rank 0 that falls silent: the follower's receive times out and raises
+    srv.FOLLOWER_TIMEOUT_S = 2.0
+    heartbeat = srv.InferenceService._heartbeat
+    srv.InferenceService._heartbeat = lambda self: None
+    try:
+        silent = srv.InferenceService(ConfigNode(cfg), inp["serve_ckpt"], device="cpu")
+    finally:
+        srv.InferenceService._heartbeat = heartbeat
+    if dist.get_rank() != 0:
+        t0 = time.perf_counter()
+        try:
+            silent.follow()
+            out["timeout"] = None
+        except RuntimeError as e:
+            out["timeout"] = (time.perf_counter() - t0, str(e)[:200])
+    dist.barrier()
+    return out
+
+
+def serve_cli(inp, work):
+    """``--mode serve`` through ``cli.main`` on both ranks, as ``torchrun``
+    runs it (the group exists, so the CLI joins it): rank 0 serves HTTP
+    while a client thread reads the port from its log, asks for one
+    segmentation and the stats, then sends the process SIGTERM; rank 0
+    drains and stops rank 1's loop. Returns the answers and both logs."""
+    import json
+    import os
+    import re
+    import signal
+    import threading
+    import time
+    import urllib.request
+
+    from multimodal_organ_segmentation_tpu_torch import cli
+    from multimodal_organ_segmentation_tpu_torch.serving import server as srv
+
+    srv.FOLLOWER_TIMEOUT_S = 4.0
+    rank = dist.get_rank()
+    logs = work / "logs" / inp["serve_cli_name"]
+    out = {}
+
+    def client():
+        try:
+            deadline, port = time.monotonic() + 60, None
+            while port is None and time.monotonic() < deadline:
+                time.sleep(0.1)
+                if (logs / "serve.log").exists():
+                    m = re.search(r"on http://[\d.]+:(\d+)", (logs / "serve.log").read_text())
+                    port = int(m.group(1)) if m else None
+            url = f"http://127.0.0.1:{port}"
+            req = urllib.request.Request(url + "/v1/segment", json.dumps(
+                {"inputs": inp["serve_case"], "case_id": "cli"}).encode(),
+                {"Content-Type": "application/json"})
+            out["segment"] = json.loads(urllib.request.urlopen(req, timeout=60).read())
+            out["stats"] = json.loads(urllib.request.urlopen(url + "/v1/stats", timeout=60).read())
+        finally:
+            os.kill(os.getpid(), signal.SIGTERM)
+
+    if rank == 0:
+        thread = threading.Thread(target=client, daemon=True)
+        thread.start()
+    try:
+        cli.main(["--mode", "serve", "--config", inp["serve_cli_config"], "--device", "cpu",
+                  "--checkpoint", inp["serve_ckpt"], "--port", "0"])
+    finally:
+        signal.signal(signal.SIGTERM, signal.SIG_DFL)
+    if rank == 0:
+        thread.join(timeout=60)
+    out["log"] = (logs / ("serve.log" if rank == 0 else f"serve.rank{rank}.log")).read_text()
+    return out
+
+
+def tensor_parallel(inp, work):
+    """A 2 × 2 ``(data, model)`` grid: the mesh's groups; for the tiny
+    cross-attention SwinUNETR and the batch-norm UNet3D, a trainer split
+    over the model axis that resumes a one-process checkpoint (the logits
+    of its weights, the split layers' parameter count a rank), then one
+    TP × DP SGD step (its metrics, its gathered checkpoint tree, written;
+    the logits after it)."""
+    from multimodal_organ_segmentation_tpu_torch.parallel.mesh import make_mesh
+    from multimodal_organ_segmentation_tpu_torch.train.checkpoint import save_checkpoint
+    from multimodal_organ_segmentation_tpu_torch.train.trainer import Trainer
+    from multimodal_organ_segmentation_tpu_torch.utils.config import ConfigNode
+
+    out = {}
+    for name in ("swin", "unet"):
+        cfg = inp[f"tp_{name}_cfg"]
+        x = _t(inp[f"tp_{name}_x"])
+        if name == "swin":
+            mesh = make_mesh(ConfigNode(cfg))
+            out["grid"] = {"shape": dict(mesh.shape), "at": (mesh.axis_rank("data"),
+                                                             mesh.axis_rank("model")),
+                           "model_group": dist.get_world_size(mesh.group("model")),
+                           "data_group": dist.get_world_size(mesh.group("data"))}
+        run = {**cfg, "experiment": {**cfg["experiment"], "name": f"tp_{name}",
+                                     "output_dir": str(work)}}
+        # a one-process checkpoint resumed on the grid: each rank slices it
+        trainer = Trainer(run, device="cpu", resume_from=inp[f"one_{name}_ckpt"])
+        trainer.init_state()
+        plan = trainer.model.tp_plan
+        split = sum(v.numel() for k, v in trainer.model.state_dict().items() if k in plan.splits)
+        trainer.model.eval()
+        with torch.no_grad():
+            logits = trainer.model(x)
+        trainer.model.train()
+        metrics = _steps(trainer, x[None, None].numpy(), inp[f"tp_{name}_y"][None, None])
+        tree = trainer.state.tree()  # the whole model's, gathered over the model group
+        save_checkpoint(tree, work / f"tp_{name}_ckpt", epoch=0)
+        trainer.model.eval()
+        with torch.no_grad():
+            after = trainer.model(x)
+        out[name] = {"logits": logits.numpy(), "split_numel": split, "metrics": metrics,
+                     "params": {k: v.clone() for k, v in tree["params"].items()},
+                     "after": after.numpy(), "kinds": [lp.kind for lp in plan.layers if lp.split]}
     return out
 
 
@@ -237,7 +399,8 @@ def inference(inp, work):
     return {"written": written, "metrics": metrics}
 
 
-TASKS = {"ring": [ring], "main": [ring, sliding_window, dual_encoder, train, inference]}
+TASKS = {"four": [ring, tensor_parallel],
+         "main": [ring, sliding_window, dual_encoder, train, inference, serve, serve_cli]}
 
 
 def main(argv) -> None:
