@@ -2822,6 +2822,8 @@ TP_LR = 0.1  # (c)'s step is SGD: Adam would turn the noise of a zero gradient i
 TP_WEIGHT_TOL = 1e-4  # (c)'s gathered weights after the step, absolute
 TP_UPDATE_RTOL = 1e-3  # (c): ||split - whole|| after the step over the whole step's ||update||
 NEAR_TIE = 1e-4  # (d): voxels whose one-process top-2 logit margin is under it may flip
+MULTI_TUNE_SW = (8, 15)  # (e): the two tile-chunk candidates at overlap 0.5 on the [http] case
+AF_LR = 1e-2  # (f)'s adafactor steps: a LayerNorm weight (rms 1) moves by ~lr, past TP_WEIGHT_TOL
 
 
 def tp_launches(plan, tiles: int, dtype, window_repeat: int, flash_repeat: int) -> tuple:
@@ -2868,6 +2870,110 @@ def _record_heads():
     return seen, undo
 
 
+def split_against_whole(rank: int, split_cfg: dict, whole_cfg: dict, batch: list,
+                        device: str = "cuda", before_split=None, after_split=None,
+                        same_grads: bool = False) -> dict:
+    """One f32 step (TF32 off) of the flagship trainer on ``batch``: on rank
+    0 of the whole model in one process (``whole_cfg``, no mesh), then on
+    every rank laid out by ``split_cfg``'s ``parallel`` block;
+    ``before_split()`` / ``after_split(trainer)`` bracket the split step.
+    Rank 0's record: each step's loss, grad_norm and rows, the gathered
+    weights' largest error against the whole step's, the whole step's
+    largest move (a check whose update moves no weight past its tolerance
+    could not fail) and ||split - whole|| / ||update||.
+
+    With ``same_grads`` the split optimiser steps on the whole step's
+    gradients (sent from rank 0, each rank taking its piece), so that the
+    weights hold the split optimiser alone: adafactor's first update of an
+    unfactored leaf is g / sqrt(g² + eps), a sign, and a gradient element
+    within rounding of zero flips its weight's move between two
+    computations of it. Loss and grad_norm still hold the split forward and
+    backward."""
+    import torch
+    import torch.distributed as dist
+
+    from multimodal_organ_segmentation_tpu_torch.train.trainer import Trainer, local_state
+
+    def build(run, name, mesh):
+        run = json.loads(json.dumps(run))
+        run["experiment"]["name"] = f"multi_{name}"
+        trainer = Trainer(run, device=device, mesh=mesh)
+        trainer.init_state()
+        return trainer
+
+    def step(trainer, name):
+        images, labels = trainer._stack_accum(batch)
+        _, metrics = trainer.train_step_fn()(trainer.state, images, labels,
+                                             trainer.keys.next(), rows=trainer._step_rows)
+        steps[name] = {"loss": float(metrics["loss"]), "grad_norm": float(metrics["grad_norm"]),
+                       "rows": int(images.shape[1])}
+
+    def host(sd):
+        return {k: v.detach().cpu().clone() for k, v in sd.items()}
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    out, steps, grads = {}, {}, None
+    try:
+        if rank == 0:
+            trainer = build(whole_cfg, "one", False)
+            before = host(trainer.model.state_dict())
+            opt = trainer.state.optimizer
+            if same_grads:
+                inner = opt.step
+
+                def keep(grad_norm=None):
+                    nonlocal grads
+                    grads = host({n: p.grad for n, p in trainer.model.named_parameters()})
+                    inner(grad_norm=grad_norm)
+
+                opt.step = keep
+            step(trainer, "one")
+            after = host(trainer.model.state_dict())
+            del trainer, opt
+            if device == "cuda":
+                torch.cuda.empty_cache()
+        if same_grads:
+            box = [grads]
+            dist.broadcast_object_list(box, src=0)
+            grads = box[0]
+        if before_split is not None:
+            before_split()
+        trainer = build(split_cfg, "split", None)
+        if same_grads:
+            opt, model = trainer.state.optimizer, trainer.model
+            inner = opt.step
+
+            def swap(grad_norm=None):
+                with torch.no_grad():
+                    for n, g in local_state(model, grads).items():
+                        dict(model.named_parameters())[n].grad.copy_(g)
+                inner(grad_norm=grad_norm)
+
+            opt.step = swap
+        step(trainer, "split")
+        if after_split is not None:
+            after_split(trainer)
+        gathered = trainer.state.tree()["params"]  # the whole layout, gathered (a collective)
+        if rank == 0:
+            # weights left stale by the split step would show here
+            err = moved = err2 = moved2 = 0.0
+            for k, v in after.items():
+                v = v.double()
+                diff, delta = gathered[k].detach().cpu().double() - v, v - before[k].double()
+                err, moved = max(err, float(diff.abs().max())), max(moved, float(delta.abs().max()))
+                err2, moved2 = err2 + float((diff**2).sum()), moved2 + float((delta**2).sum())
+            out["weights_err"], out["update_max"] = err, moved
+            out["update_rel"] = (err2 / moved2) ** 0.5 if moved2 else float("inf")
+        del trainer, gathered, grads
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    out["steps"] = steps
+    return out
+
+
 def multi_tp(rank: int, world: int, device: str = "cuda") -> dict:
     """[multi] (c) on one rank of a ``world``-rank group: the flagship at full
     width on a ``data 1 × model world`` mesh. A bf16 forward of a chunk of
@@ -2882,7 +2988,6 @@ def multi_tp(rank: int, world: int, device: str = "cuda") -> dict:
     from multimodal_organ_segmentation_tpu_torch.models.build import build_model
     from multimodal_organ_segmentation_tpu_torch.ops.flash_attention import flash_attention
     from multimodal_organ_segmentation_tpu_torch.ops.window_attention import window_mha
-    from multimodal_organ_segmentation_tpu_torch.train.trainer import Trainer
 
     seed = FLAGSHIP["experiment"]["seed"]
     tp_mesh = {"data": 1, "model": world}
@@ -2926,59 +3031,29 @@ def multi_tp(rank: int, world: int, device: str = "cuda") -> dict:
 
         # one f32 step at micro-batch 1, SGD, TF32 off
         t1 = time.perf_counter()
-        tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
-        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
         tcfg = train_config("fp32", accumulation_steps=1)
         tcfg["training"]["batch_size"] = 1
         tcfg["training"]["optimizer"] = {"name": "sgd", "lr": TP_LR, "momentum": 0.9,
                                          "weight_decay": 0.0}
+        split = json.loads(json.dumps(tcfg))
+        split["parallel"]["mesh"] = tp_mesh
+
+        def launches_of(trainer):
+            _sync(device)
+            out["step_launches"] = attention_launches()
+            out["step_heads"] = json.loads(json.dumps(seen))
+            # remat runs each Swin block's forward twice; the fusions once
+            out["step_expect"] = tp_launches(trainer.model.tp_plan, 1, torch.float32, 2, 1)
+
+        def before_split():
+            reset_launches(window_mha, flash_attention)
+            for v in seen.values():
+                v.clear()
+
         image, label = training_patches(1, seed)[0]
-        batch = [{"image": image[None], "label": label[None]}]
-        steps = {}
-        for name in ("split", "one"):
-            if name == "one" and rank != 0:
-                break
-            run = json.loads(json.dumps(tcfg))
-            run["experiment"]["name"] = f"multi_tp_{name}"
-            if name == "split":
-                run["parallel"]["mesh"] = tp_mesh
-                reset_launches(window_mha, flash_attention)
-                for v in seen.values():
-                    v.clear()
-            trainer = Trainer(run, device=device, mesh=None if name == "split" else False)
-            trainer.init_state()
-            if name == "one":
-                before = {k: v.detach().cpu().clone() for k, v in trainer.model.state_dict().items()}
-            images, labels = trainer._stack_accum(batch)
-            _, metrics = trainer.train_step_fn()(trainer.state, images, labels,
-                                                 trainer.keys.next(), rows=trainer._step_rows)
-            steps[name] = {"loss": float(metrics["loss"]), "grad_norm": float(metrics["grad_norm"])}
-            if name == "split":
-                _sync(device)
-                out["step_launches"] = attention_launches()
-                out["step_heads"] = json.loads(json.dumps(seen))
-                # remat runs each Swin block's forward twice; the fusions once
-                out["step_expect"] = tp_launches(trainer.model.tp_plan, 1, torch.float32, 2, 1)
-                params = trainer.state.tree()["params"]  # gathered over the model group
-                gathered = {k: v.detach().cpu() for k, v in params.items()} if rank == 0 else None
-                del params
-            else:
-                # the split step's error against the whole step's update:
-                # weights left stale by the split step would show here
-                err = moved = err2 = moved2 = 0.0
-                for k, v in trainer.model.state_dict().items():
-                    v = v.detach().cpu().double()
-                    diff, step = gathered[k].double() - v, v - before[k].double()
-                    err, moved = max(err, float(diff.abs().max())), max(moved, float(step.abs().max()))
-                    err2, moved2 = err2 + float((diff**2).sum()), moved2 + float((step**2).sum())
-                out["weights_err"], out["update_max"] = err, moved
-                out["update_rel"] = (err2 / moved2) ** 0.5 if moved2 else float("inf")
-                del before, gathered
-            del trainer, images, labels
-            if device == "cuda":
-                torch.cuda.empty_cache()
-        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
-        out["steps"] = steps
+        out.update(split_against_whole(rank, split, tcfg, [{"image": image[None],
+                                                            "label": label[None]}],
+                                       device, before_split, launches_of))
         out["step_s"] = time.perf_counter() - t1
     finally:
         undo()
@@ -3059,6 +3134,189 @@ def multi_serve(rank: int, http: dict, device: str = "cuda") -> dict:
 
 
 
+def sub_counts(after: dict, before: dict) -> dict:
+    """``after - before``, route by route, of two launch-count snapshots."""
+    return {name: {route: n - before[name][route] for route, n in counts.items()}
+            for name, counts in after.items()}
+
+
+def multi_tune(rank: int, http: dict, device: str = "cuda") -> dict:
+    """[multi] (e) on one rank of the data-parallel group: ``--mode tune``
+    through ``cli.main`` (which joins the group) on the flagship at the
+    [http] case's shape over ``MULTI_TUNE_SW`` at overlap 0.5, one timed run
+    each. The rank's report as ``tune_serving`` returned it, its
+    ``write_profile`` calls, and each candidate's A/B launches on this rank
+    beside the tile grid's plan (this rank's chunks of every pass), and the
+    ranks' votes (``parallel.mesh.Agreement``): their count and host time."""
+    from multimodal_organ_segmentation_tpu_torch.ops import sliding_window as tsw
+    from multimodal_organ_segmentation_tpu_torch.parallel import mesh as tmesh
+    from multimodal_organ_segmentation_tpu_torch.serving import tuner
+
+    reports, writes, got, expect, votes = [], [], {}, {}, [0, 0.0]
+    vote = tmesh.Agreement._vote
+
+    def timed_vote(self, failed, values):
+        t0 = time.perf_counter()
+        out = vote(self, failed, values)
+        votes[0], votes[1] = votes[0] + 1, votes[1] + time.perf_counter() - t0
+        return out
+
+    tmesh.Agreement._vote = timed_vote
+    tune_serving, write_profile = tuner.tune_serving, tuner.write_profile
+    tuner.tune_serving = lambda *a, **k: reports.append(tune_serving(*a, **k)) or reports[-1]
+    tuner.write_profile = lambda *a, **k: writes.append(str(a[1])) or write_profile(*a, **k)
+    call = tsw.SlidingWindowRunner.__call__
+
+    def counted(self, volume, params=None):
+        before = attention_launches()
+        logits = call(self, volume, params)
+        _sync(device)
+        key = f"{self.overlap}/{self.sw_batch_size}"
+        got[key] = add_counts(got.get(key, {}), sub_counts(attention_launches(), before))
+        chunks = self.grid(tuple(volume.shape[:3]))[0].shape[0] // self.mesh.shape["data"]
+        expect[key] = add_counts(expect.get(key, {}),
+                                 predicted_launches(self.sw_batch_size, chunks, chunks))
+        return logits
+
+    tsw.SlidingWindowRunner.__call__ = counted
+    profile = Path(http["work"]) / "multi_tuned.yaml"
+    try:
+        wall = _cli(["--mode", "tune", "--config", http["cfg_path"], "--output", str(profile),
+                     "--set", f"tune.volume_shape={list(http['volume'])}",
+                     "--set", f"tune.sw_batches={list(MULTI_TUNE_SW)}",
+                     "--set", "tune.overlaps=[0.5]", "--set", "tune.repeats=1"], device)
+    finally:
+        tuner.tune_serving, tuner.write_profile = tune_serving, write_profile
+        tsw.SlidingWindowRunner.__call__ = call
+        tmesh.Agreement._vote = vote
+    return {"reports": reports, "writes": writes, "profile": str(profile), "launches": got,
+            "expect": expect, "wall_s": wall, "votes": votes[0], "vote_s": votes[1]}
+
+
+def multi_adafactor(rank: int, world: int, device: str = "cuda") -> dict:
+    """[multi] (f) on one rank: one f32 adafactor step (``AF_LR``) of the
+    flagship split two ways against the whole model's one-rank step: ZeRO-1
+    on ``data world`` at micro-batch 2 split 1 + 1, as (b) runs its step,
+    and tensor parallelism on ``data 1 × model world`` at micro-batch 1, as
+    (c) runs its step; the split optimiser steps on the whole step's
+    gradients (``split_against_whole``'s ``same_grads``)."""
+    import types
+
+    import torch
+
+    from multimodal_organ_segmentation_tpu_torch.ops.flash_attention import flash_attention
+    from multimodal_organ_segmentation_tpu_torch.ops.window_attention import window_mha
+
+    t0 = time.perf_counter()
+    patches = training_patches(2, FLAGSHIP["experiment"]["seed"])
+    out = {}
+    for layout, micro, parallel in (("zero1", 2, {"zero1": True}),
+                                    ("tp", 1, {"mesh": {"data": 1, "model": world}})):
+        whole = train_config("fp32", accumulation_steps=1)
+        whole["training"]["batch_size"] = micro
+        whole["training"]["optimizer"] = {"name": "adafactor", "lr": AF_LR, "weight_decay": 0.0}
+        split = json.loads(json.dumps(whole))
+        split["parallel"].update(parallel)
+        batch = [{"image": np.stack([p[0] for p in patches[:micro]]),
+                  "label": np.stack([p[1] for p in patches[:micro]])}]
+        seen = {}
+
+        def launches_of(trainer):
+            # the split step's A and B launches on this rank: one row, remat
+            _sync(device)
+            plan = getattr(trainer.model, "tp_plan", None) or types.SimpleNamespace(layers=[])
+            seen["launches"] = attention_launches()
+            seen["expect"] = tp_launches(plan, 1, torch.float32, 2, 1)[0]
+
+        out[layout] = split_against_whole(rank, split, whole, batch, device,
+                                          lambda: reset_launches(window_mha, flash_attention),
+                                          launches_of, same_grads=True)
+        out[layout].update(seen)
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def multi_ring_model(rank: int, world: int, device: str = "cuda") -> dict:
+    """[multi] (g) on one rank: the 128³ DualEncoder (f32) built with
+    ``sequence_axis: model`` on ``data 1 × model world``; its widest
+    attending level, which the ring's doubled token budget opened (32³ =
+    32768 tokens, 128 channels, 4 heads), forward and backward through the
+    fusion module with the ring over the model group (every rank holding the
+    batch); rank 0 holds the output and the gradients of both inputs and of
+    the q projection against the same module with dense attention (chunked
+    over the queries, each chunk recomputed in the backward), its largest
+    error over each reference's largest magnitude."""
+    import torch
+    from torch.utils.checkpoint import checkpoint
+
+    from multimodal_organ_segmentation_tpu_torch.models import fusion as tfusion
+    from multimodal_organ_segmentation_tpu_torch.models.build import build_model
+    from multimodal_organ_segmentation_tpu_torch.parallel import ring_attention as ra
+    from multimodal_organ_segmentation_tpu_torch.parallel.mesh import same_input
+
+    t0 = time.perf_counter()
+    cfg = model_config(DE128)
+    cfg["hardware"]["mixed_precision"] = "fp32"
+    cfg["parallel"] = {"mesh": {"data": 1, "model": world}, "sequence_axis": "model"}
+    model = build_model(cfg, device=device, train=True)
+    level = min(lv for lv in range(5) if hasattr(model, f"fusion_xattn{lv}"))
+    fusion = getattr(model, f"fusion_xattn{level}").eval()  # no dropout draw
+    grid = cfg["model"]["backbone"]["img_size"][0] >> level
+    c = cfg["model"]["backbone"]["features"][level]
+    g = torch.Generator(device=device).manual_seed(5)
+    qf, kvf, do = (torch.randn((1, grid, grid, grid, c), generator=g, device=device)
+                   for _ in range(3))
+    out = {"level": level, "tokens": grid**3, "channels": c, "heads": fusion.num_heads,
+           "axis": fusion.sequence_axis}
+
+    def run(module):
+        q, kv = qf.clone().requires_grad_(), kvf.clone().requires_grad_()
+        module.zero_grad(set_to_none=True)
+        y = module(q, kv)
+        (y * do).sum().backward()
+        return y.detach(), q.grad, kv.grad, module.q_proj.weight.grad
+
+    rings = []
+    ring = ra.ring_attention
+    ra.ring_attention = lambda *a, **k: rings.append(a[4]) or ring(*a, **k)
+    try:
+        with same_input():
+            got = run(fusion)
+        _sync(device)
+    finally:
+        ra.ring_attention = ring
+    out["rings"], out["ring_s"] = rings, time.perf_counter() - t0
+    if rank == 0:
+        def dense(q, k, v, **_):
+            scale = q.shape[-1] ** -0.5
+
+            def chunk(qc):
+                s = torch.einsum("bnhd,bmhd->bhnm", qc, k) * scale
+                return torch.einsum("bhnm,bmhd->bnhd", torch.softmax(s, -1), v)
+
+            return torch.cat([checkpoint(chunk, q[:, i:i + 4096], use_reentrant=False)
+                              for i in range(0, q.shape[1], 4096)], 1)
+
+        ref_module = tfusion.CrossAttentionFusion(c, fusion.num_heads).to(device).eval()
+        ref_module.load_state_dict(fusion.state_dict())
+        mha = tfusion.multi_head_attention
+        tfusion.multi_head_attention = dense
+        try:
+            want = run(ref_module)
+        finally:
+            tfusion.multi_head_attention = mha
+        out["errs"] = {name: float((a - b).abs().max()) / float(b.abs().max())
+                       for name, a, b in zip(("out", "d_query", "d_kv", "d_q_proj"), got, want)}
+        out["scales"] = {name: float(b.abs().max())
+                         for name, b in zip(("out", "d_query", "d_kv", "d_q_proj"), want)}
+        del ref_module, want
+    del model, fusion, got
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
 def _multi_volume():
     """The [multi] phase's 192×192×256 CT+PET volume, from the seed."""
     import torch
@@ -3079,8 +3337,11 @@ def multi_rank(rank: int, world: int, rendezvous: str, ref_path: str, out_path: 
     flagship volume, one data-parallel f32 train step of the flagship (the
     rank's rows of a micro-batch of 2) and the one-rank step on the whole
     micro-batch (rank 0), the ring at a DE128 level; then (c) tensor
-    parallelism (``multi_tp``) and (d) the multi-rank service
-    (``multi_serve``); results to ``out_path``."""
+    parallelism (``multi_tp``), (d) the multi-rank service
+    (``multi_serve``), (e) ``--mode tune`` across the ranks
+    (``multi_tune``), (f) adafactor under ZeRO-1 and tensor parallelism
+    (``multi_adafactor``) and (g) the DE128's ring over the model axis
+    (``multi_ring_model``); results to ``out_path``."""
     import torch
     import torch.distributed as dist
 
@@ -3174,6 +3435,10 @@ def multi_rank(rank: int, world: int, rendezvous: str, ref_path: str, out_path: 
         out["tp"] = multi_tp(rank, world)
         out["serve"] = multi_serve(rank, http)
         dist.barrier()
+        out["tune"] = multi_tune(rank, http)
+        out["adafactor"] = multi_adafactor(rank, world)
+        out["ring_model"] = multi_ring_model(rank, world)
+        dist.barrier()
     finally:
         dist.destroy_process_group()
         torch.save(out, out_path)
@@ -3198,10 +3463,16 @@ def phase_multi(http: dict) -> dict:
     rank as the plan says, with its head counts) and (d)
     the multi-rank service on a ``data 2`` mesh (``multi_serve``: one
     request of the [http] case, its mask equal to [http]'s outside
-    near-ties, the follower stopped); (e) wall times and peak memory per
-    rank beside the card's name and power limit. ``http`` holds the [http]
-    phase's config, checkpoint, case, mask file and work directory. Returns
-    the launches of (a), (c) and (d) together."""
+    near-ties, the follower stopped); (e) ``--mode tune`` on both ranks
+    (``multi_tune``: one table and pick on both, the profile written once,
+    each candidate's launches a rank to the plan); (f) one f32 adafactor
+    step under ZeRO-1 and under tensor parallelism (``multi_adafactor``)
+    against the one-rank step, at (b)'s and (c)'s tolerances; (g) the
+    DE128's ring level with ``sequence_axis: model`` (``multi_ring_model``)
+    against dense attention within ``TOL``; then wall times and peak memory
+    per rank beside the card's name and power limit. ``http`` holds the
+    [http] phase's config and its file, checkpoint, case, mask file and work
+    directory. Returns the launches of (a) and (c) to (f) together."""
     import multiprocessing
 
     import torch
@@ -3311,14 +3582,31 @@ def phase_multi(http: dict) -> dict:
             f"f32 steps)")
         log(f"[multi] (d) time {serve_s:.1f} s (service builds, one request, the one-process "
             f"margins)")
-        log(f"[multi] (e) {smi}; (a) {wall_a:.1f} s, (b) to (d) {wall_b:.1f} s")
+        ok_e = check_multi_tune([r["tune"] for r in ranks])
+        ok_f = check_multi_adafactor([r["adafactor"] for r in ranks])
+        ok_g = check_multi_ring_model([r["ring_model"] for r in ranks])
+        efg_s = max(r["tune"]["wall_s"] + r["adafactor"]["wall_s"] + r["ring_model"]["wall_s"]
+                    for r in ranks)
+        log(f"[multi] (e) to (g) time {efg_s:.1f} s (slowest rank; tune "
+            f"{max(r['tune']['wall_s'] for r in ranks):.1f} s, adafactor "
+            f"{max(r['adafactor']['wall_s'] for r in ranks):.1f} s, ring model "
+            f"{max(r['ring_model']['wall_s'] for r in ranks):.1f} s)")
+        log(f"[multi] {smi}; (a) {wall_a:.1f} s, (b) to (g) {wall_b:.1f} s")
         if not ok_c:
             raise SystemExit("[multi] (c) a tensor-parallel check failed")
         if not ok_d:
             raise SystemExit("[multi] (d) a multi-rank serving check failed")
+        if not ok_e:
+            raise SystemExit("[multi] (e) a multi-rank tuning check failed")
+        if not ok_f:
+            raise SystemExit("[multi] (f) an adafactor check failed")
+        if not ok_g:
+            raise SystemExit("[multi] (g) the DE128's ring over the model axis failed")
         launches = add_counts(launches, *[r["tp"]["fwd_launches"] for r in ranks],
                               *[r["tp"]["step_launches"] for r in ranks],
-                              *[r["serve"]["launches"] for r in ranks])
+                              *[r["serve"]["launches"] for r in ranks],
+                              *[c for r in ranks for c in r["tune"]["launches"].values()],
+                              *[r["adafactor"][k]["launches"] for r in ranks for k in ("zero1", "tp")])
     finally:
         shutil.rmtree(work, ignore_errors=True)
     return launches
@@ -3399,6 +3687,86 @@ def check_multi_serve(ranks: list, device: str = "cuda") -> bool:
     return ok
 
 
+def check_multi_tune(ranks: list, device: str = "cuda") -> bool:
+    """Log and hold (e): one report on every rank (the same table and
+    pick), no candidate failed, rank 0 alone wrote the profile, every rank
+    voted as often, and each candidate's launches on each rank equal to its
+    chunks' plan."""
+    r0 = ranks[0]
+    report = r0["reports"][0] if len(r0["reports"]) == 1 else {"results": [], "best": None}
+    for r in report["results"]:
+        log(f"[multi] (e) tune over {len(ranks)} ranks: overlap {r['overlap']} sw_batch "
+            f"{r['sw_batch']}: " + (f"{r['vol_per_min']} volumes/min, {r['seconds_per_volume']} s "
+                                     f"a volume (slowest rank; first run {r['compile_s']} s)"
+                                     if "vol_per_min" in r else f"FAILED {r['error']}"))
+    best = report["best"] or {}
+    log(f"[multi] (e) pick overlap {best.get('overlap')} sw_batch {best.get('sw_batch')} on every "
+        f"rank: {all(r['reports'] == r0['reports'] for r in ranks)}; profile writes by rank "
+        f"{[len(r['writes']) for r in ranks]}; wall {[round(r['wall_s'], 1) for r in ranks]} s")
+    log(f"[multi] (e) votes by rank {[r['votes'] for r in ranks]} in "
+        f"{[round(r['vote_s'] * 1e3, 3) for r in ranks]} ms of host time "
+        f"({[round(r['vote_s'] / max(r['votes'], 1) * 1e6, 1) for r in ranks]} us a vote)")
+    ok = (len(r0["reports"]) == 1 and all(r["reports"] == r0["reports"] for r in ranks)
+          and len(report["results"]) == len(MULTI_TUNE_SW)
+          and all("vol_per_min" in r for r in report["results"]) and report["best"] is not None
+          and [r["writes"] for r in ranks] == [[r0["profile"]]] + [[]] * (len(ranks) - 1)
+          and Path(r0["profile"]).exists() and len({r["votes"] for r in ranks}) == 1)
+    for i, r in enumerate(ranks):
+        for key in sorted(r["expect"]):
+            log(f"[multi] (e) rank {i} candidate {key}: kernels {json.dumps(r['launches'][key])} "
+                f"expected {json.dumps(r['expect'][key])}")
+        if device == "cuda":
+            ok = ok and r["launches"] == r["expect"] and len(r["expect"]) == len(MULTI_TUNE_SW)
+    return ok
+
+
+def check_multi_adafactor(ranks: list, device: str = "cuda") -> bool:
+    """Log and hold (f): each layout's split step within ``STEP_RTOL`` (ZeRO-1)
+    or ``TP_STEP_RTOL`` (tensor parallelism) of the one-rank step in loss and
+    grad_norm, the gathered weights within ``TP_WEIGHT_TOL`` and
+    ``TP_UPDATE_RTOL`` of its update, which moves a weight by at least ten
+    times ``TP_WEIGHT_TOL``; each rank's A and B launches in the split step
+    as the plan says (``f32``, remat: A twice a block)."""
+    ok = True
+    for layout, rtol, what in (("zero1", STEP_RTOL, f"ZeRO-1 on data {len(ranks)}"),
+                               ("tp", TP_STEP_RTOL, f"data 1 x model {len(ranks)}")):
+        r0 = ranks[0][layout]
+        steps = r0["steps"]
+        rel = max(abs(steps["split"][k] - steps["one"][k]) / abs(steps["one"][k])
+                  for k in ("loss", "grad_norm"))
+        log(f"[multi] (f) adafactor f32 step, {what}, rows {[r[layout]['steps']['split']['rows'] for r in ranks]}"
+            f" of {steps['one']['rows']}: split loss {steps['split']['loss']:.7f} grad_norm "
+            f"{steps['split']['grad_norm']:.7f}; one rank loss {steps['one']['loss']:.7f} "
+            f"grad_norm {steps['one']['grad_norm']:.7f}; max relative difference {rel:.2e} (tol "
+            f"{rtol:.0e}); gathered weights max |diff| {r0['weights_err']:.3e} (tol "
+            f"{TP_WEIGHT_TOL:.0e}) while the one-rank step moved a weight by up to "
+            f"{r0['update_max']:.3e} (at least {10 * TP_WEIGHT_TOL:.0e}); ||split - whole|| / "
+            f"||update|| {r0['update_rel']:.3e} (tol {TP_UPDATE_RTOL:.0e})")
+        ok = (ok and rel <= rtol and r0["weights_err"] <= TP_WEIGHT_TOL
+              and r0["update_max"] >= 10 * TP_WEIGHT_TOL and r0["update_rel"] <= TP_UPDATE_RTOL)
+        for i, r in enumerate(ranks):
+            log(f"[multi] (f) {what} rank {i} split step: kernels {json.dumps(r[layout]['launches'])} "
+                f"expected {json.dumps(r[layout]['expect'])}")
+            if device == "cuda":
+                ok = ok and r[layout]["launches"] == r[layout]["expect"]
+    return ok
+
+
+def check_multi_ring_model(ranks: list) -> bool:
+    """Log and hold (g): the ring ran over the model axis on every rank, at
+    the level the doubled budget opened, and its output and gradients are
+    within ``TOL`` of dense attention's (relative to the largest
+    magnitude)."""
+    r0 = ranks[0]
+    log(f"[multi] (g) DE128 f32, sequence_axis model on data 1 x model {len(ranks)}: level "
+        f"{r0['level']} ({r0['tokens']} tokens, {r0['channels']} channels, {r0['heads']} heads) "
+        f"rings {[r['rings'] for r in ranks]}; against dense attention, max |diff| / max |ref|: "
+        + ", ".join(f"{k} {v:.3e} (ref up to {r0['scales'][k]:.3e})" for k, v in r0["errs"].items())
+        + f" (tol {TOL['float32']}); wall {[round(r['wall_s'], 1) for r in ranks]} s")
+    return (all(r["rings"] == ["model"] and r["axis"] == "model" for r in ranks)
+            and all(v <= TOL["float32"] for v in r0["errs"].values()))
+
+
 def phase_models() -> dict:
     """The other model families on the card: the 128³ DualEncoder tile check,
     serving every configuration of ``MODEL_KEYS``, the DualEncoder's training and its
@@ -3461,8 +3829,8 @@ def main(argv) -> int:
     by_path["export"] = phase_export(cfg, cfg_path, inputs, served_mask, work)
     # [multi] (d) serves the [http] checkpoint and case and compares its mask
     np.save(work / "http_mask.npy", served_mask)
-    http = {"cfg": cfg, "ckpt": str(work / "ckpt"), "inputs": inputs, "volume": list(VOLUME),
-            "mask": str(work / "http_mask.npy"), "work": str(work)}
+    http = {"cfg": cfg, "cfg_path": str(cfg_path), "ckpt": str(work / "ckpt"), "inputs": inputs,
+            "volume": list(VOLUME), "mask": str(work / "http_mask.npy"), "work": str(work)}
     torch.cuda.empty_cache()
     by_path["explain"] = phase_explain()
     torch.cuda.empty_cache()

@@ -39,8 +39,9 @@ model axis (tensor parallelism), and rank 0 writes the metrics, checkpoints
 and logs (the other ranks log to ``<mode>.rank<k>.log``). ``--mode serve``
 under ``torchrun``: rank 0 serves HTTP and broadcasts each request to the
 other ranks, which run the pass with it (``serving/server.py``); ``--mode
-tune`` runs as one process and raises under several ranks
-(``serving/tuner.py::refuse_ranks``).
+tune`` under ``torchrun`` times that multi-rank pass on every rank, the
+ranks agree on each candidate (``serving/tuner.py``), and rank 0 writes the
+profile.
 """
 
 from __future__ import annotations
@@ -410,8 +411,15 @@ def run_tune(config, logger) -> None:
         / str(config.get("experiment.name", "exp"))
         / "tuned_serving.yaml"
     )
-    write_profile(report, profile_path)
+    from multimodal_organ_segmentation_tpu_torch.parallel.mesh import world
+
+    # every rank holds the same report; rank 0 writes it
+    if world()[0] == 0:
+        write_profile(report, profile_path)
     best = report["best"]
+    if best is None:  # write_profile raised on rank 0; the others say why too
+        raise RuntimeError(f"no eligible tuning candidate: "
+                           f"{[r.get('error') for r in report['results']]}")
     logger.info(
         f"Best: overlap={best['overlap']} sw_batch={best['sw_batch']} → "
         f"{best['vol_per_min']} vol/min; profile saved: {profile_path} "

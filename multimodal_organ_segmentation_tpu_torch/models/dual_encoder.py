@@ -249,7 +249,9 @@ def build_dual_encoder(config, dtype: torch.dtype = torch.float32) -> DualEncode
     of the job's process mesh (ring attention); the mesh's size there decides
     which levels attend, so the module tree is built for the process group
     this is called in. A size-1 axis (one process) is dropped, as the JAX
-    builder drops it.
+    builder drops it. The axis is ``data`` or ``model``: on a ``(data,
+    model)`` grid the ranks of a model group hold the same rows, and the
+    ring runs over them while the rows are split over the data axis.
     """
     backbone = config.get("model.backbone", {}) or {}
     fusion = config.get("model.fusion", {}) or {}
@@ -260,15 +262,11 @@ def build_dual_encoder(config, dtype: torch.dtype = torch.float32) -> DualEncode
     sequence_axis = config.get("parallel.sequence_axis", None)
     mesh = None
     if sequence_axis:
-        from multimodal_organ_segmentation_tpu_torch.parallel.mesh import _grid, make_mesh, world
+        from multimodal_organ_segmentation_tpu_torch.parallel.mesh import make_mesh, world
 
-        if str(sequence_axis) != "data" and world()[1] > 1 and _grid(config, world()[1])[1] > 1:
-            raise ValueError(
-                f"parallel.sequence_axis={sequence_axis!r}: the ring runs over the data axis only "
-                "(the ranks of a model group hold the same rows, and the DualEncoder is "
-                "replicated over the model axis)")
-        mesh = make_mesh(config)
-        if mesh.shape.get(str(sequence_axis), 1) <= 1:
+        # one process: every axis has size 1
+        mesh = make_mesh(config) if world()[1] > 1 else None
+        if mesh is None or mesh.shape.get(str(sequence_axis), 1) <= 1:
             sequence_axis, mesh = None, None
     return DualEncoder(
         num_modalities=len(modalities),

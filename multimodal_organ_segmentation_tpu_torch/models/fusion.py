@@ -179,10 +179,12 @@ class CrossAttentionFusion(nn.Module):
     count, the tokens are sharded over its ranks and attention runs as a K/V
     ring (``parallel/ring_attention.py``); otherwise it warns once and falls
     back to the path above, as the JAX module does. The ring runs only where
-    the ranks are known to compute on one batch (``parallel.mesh.rows`` in
-    the data-parallel step and validation, ``parallel.mesh.same_input``);
-    elsewhere, as in the tile-sharded sliding window or case sharding, each
-    rank holds other inputs, and it warns once and falls back likewise.
+    the ranks of the axis are known to compute on one batch
+    (``parallel.mesh.rows`` in the data-parallel step and validation, where
+    the data axis's ranks hold blocks of one batch and a model group's ranks
+    the same rows; ``parallel.mesh.same_input``); elsewhere, as in the
+    tile-sharded sliding window or case sharding, each rank holds other
+    inputs, and it warns once and falls back likewise.
 
     Tensor parallelism (``tp_apply``, in a SwinUNETR whose model axis is > 1):
     ``num_heads`` is the rank's share, q/k/v hold its heads' output features,
@@ -262,19 +264,31 @@ class CrossAttentionFusion(nn.Module):
     def _ring(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
         """Ring attention over the ranks of ``sequence_axis``: this rank's
         token shard of every row attends over the ring, and the output's
-        shards are gathered back. On a batch split over the same ranks (data
-        parallelism: ``parallel.mesh.rows``) q, k and v are first gathered
+        shards are gathered back. Every step differentiates.
+
+        Over the data axis, on a batch split over the same ranks (data
+        parallelism: ``parallel.mesh.rows``), q, k and v are first gathered
         over the batch and the rank keeps its rows of the output at the end,
-        which GSPMD does for the JAX package. Every step differentiates."""
+        which GSPMD does for the JAX package; the data-parallel step's sum of
+        the gradients over the data group adds the shards' parts. Over the
+        model axis the ranks of a group hold the same rows and compute the
+        replicated layers alike, and no sum over the group follows: each
+        rank's shard gradients are gathered back to every rank, and the
+        gathered output's gradient, alike on every rank, is not summed."""
         from multimodal_organ_segmentation_tpu_torch.parallel.mesh import (
             active_rows,
             all_gather_cat,
+            gather_alike,
+            scatter_alike,
         )
         from multimodal_organ_segmentation_tpu_torch.parallel.ring_attention import (
             ring_attention,
         )
 
         mesh, axis = self.mesh, self.sequence_axis
+        if axis != "data":
+            q, k, v = (scatter_alike(t, 1, mesh, axis) for t in (q, k, v))
+            return gather_alike(ring_attention(q, k, v, mesh, axis), 1, mesh, axis)
         split = active_rows()
         if split is not None:
             q, k, v = (all_gather_cat(t, 0, mesh, axis) for t in (q, k, v))

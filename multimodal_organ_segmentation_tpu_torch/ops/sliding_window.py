@@ -25,6 +25,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from multimodal_organ_segmentation_tpu_torch.parallel.mesh import collective
+
 
 def _scan_starts(dim: int, roi: int, overlap: float) -> list:
     """Tile start offsets along one axis (MONAI dense_patch_slices rule)."""
@@ -281,8 +283,8 @@ def _blend(
     )
     if mesh is not None and mesh.shape[axis_name] > 1:
         group = mesh.group(axis_name)
-        dist.all_reduce(acc, group=group)
-        dist.all_reduce(wacc, group=group)
+        collective(dist.all_reduce, acc, group=group)
+        collective(dist.all_reduce, wacc, group=group)
     acc.div_(wacc)
     return acc[:h, :w, :d, :]
 

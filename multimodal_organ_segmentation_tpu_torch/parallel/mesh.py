@@ -18,7 +18,8 @@ device, where JAX holds every device in one process:
   are autograd-aware), each over the axis it names;
 - ZeRO-1 (``zero1_spec``, ``Zero1Optimizer``): each rank keeps and updates
   one slice of every optimiser-state leaf along the leaf's largest dim that
-  divides the data axis, then gathers the parameters over the data group.
+  divides the data axis, then gathers the parameters over the data group
+  (adafactor's statistics summed over the slices, as the whole leaf's).
 
 NCCL serves CUDA ranks and gloo CPU ranks. gloo carries only ``all_reduce``
 and ``broadcast`` for CUDA tensors: where a collective of CUDA tensors runs
@@ -215,8 +216,10 @@ def same_input():
 
 
 def ranks_share_batch() -> bool:
-    """True where the ranks are known to compute on one batch: a split batch
-    (``rows``) or a replicated one (``same_input``)."""
+    """True where the ranks of either axis are known to compute on one
+    batch: a split batch (``rows``: the data axis's ranks hold its blocks of
+    rows, which a ring over them gathers, and the ranks of a model group
+    hold the same rows) or a replicated one (``same_input``)."""
     return _ROWS is not None or _SAME_INPUT
 
 
@@ -242,6 +245,82 @@ def dropout_rows(x: torch.Tensor, p: float, channel: bool) -> Optional[torch.Ten
 # -- collectives ----------------------------------------------------------------
 
 
+class PeerFailed(RuntimeError):
+    """Work under an :func:`agreement` failed on another rank."""
+
+
+class Agreement:
+    """The ranks of a job settling whether a unit of work (a tuning
+    candidate) failed on any of them, by votes (one ``all_reduce(MAX)`` over
+    a gloo group of every rank, on the host: no wait for the card) that every
+    rank reaches whether or not its own work raised. :func:`collective` votes
+    "going on" in front of each collective of the work; a rank whose work
+    raised votes "failed" in ``finish`` (once, unless a vote already told
+    it), which the others meet at their next vote or at their own
+    ``finish``: then every rank knows, and no rank is left in the work's
+    collective. Every rank must run the same number of collectives."""
+
+    def __init__(self, group):
+        self.group, self.settled = group, False
+
+    def _vote(self, failed: bool, values: Sequence[float]) -> Tuple[bool, List[float]]:
+        t = torch.tensor([float(failed), *values], dtype=torch.float64)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self.group)
+        return bool(t[0] > 0), t[1:].tolist()
+
+    def check(self) -> None:
+        """Vote "going on"; raise ``PeerFailed`` if a rank voted "failed"."""
+        if self._vote(False, (0.0, 0.0))[0]:
+            self.settled = True
+            raise PeerFailed("the work failed on another rank")
+
+    def finish(self, failed: bool, values: Sequence[float] = (0.0, 0.0)
+               ) -> Tuple[bool, List[float]]:
+        """The closing vote: whether any rank failed, and each of ``values``'
+        largest over the ranks (two floats, the slowest rank's times). A rank
+        that a vote already told votes no more."""
+        if self.settled:
+            return True, [float("nan")] * len(values)
+        self.settled = True
+        return self._vote(failed, values)
+
+
+_AGREEMENT: Optional[Agreement] = None
+
+
+def control_group():
+    """A gloo group of every rank, for votes and small objects on the host:
+    the default group where it is gloo, else a new one (a collective: every
+    rank calls it)."""
+    return None if dist.get_backend() == "gloo" else dist.new_group(backend="gloo")
+
+
+@contextlib.contextmanager
+def agreement(group=None):
+    """Within: every :func:`collective` votes first over ``group`` (from
+    :func:`control_group`); yields the :class:`Agreement`, or None outside a
+    process group."""
+    global _AGREEMENT
+    if not (dist.is_available() and dist.is_initialized()):
+        yield None
+        return
+    prev, _AGREEMENT = _AGREEMENT, Agreement(group)
+    try:
+        yield _AGREEMENT
+    finally:
+        _AGREEMENT = prev
+
+
+def collective(op: Callable, *args, **kwargs):
+    """``op(*args, **kwargs)``, a collective of ``torch.distributed`` in the
+    port's passes (every one of them goes through here); under an
+    :func:`agreement`, every rank's vote that its work goes on comes first
+    (raises ``PeerFailed`` when a rank's failed)."""
+    if _AGREEMENT is not None and not _AGREEMENT.settled:
+        _AGREEMENT.check()
+    return op(*args, **kwargs)
+
+
 def _staged(group, x: torch.Tensor) -> bool:
     """gloo moves CUDA tensors only in all_reduce and broadcast."""
     return x.is_cuda and dist.get_backend(group) == "gloo"
@@ -256,7 +335,7 @@ def _all_gather(x: torch.Tensor, group) -> List[torch.Tensor]:
     if staged:
         src = src.cpu()
     parts = [torch.empty_like(src) for _ in range(size)]
-    dist.all_gather(parts, src, group=group)
+    collective(dist.all_gather, parts, src, group=group)
     return [t.to(x.device) for t in parts] if staged else parts
 
 
@@ -273,7 +352,7 @@ class _GatherCat(torch.autograd.Function):
     def backward(ctx, g):
         g = g.contiguous()
         if dist.get_world_size(ctx.group) > 1:
-            dist.all_reduce(g, group=ctx.group)
+            collective(dist.all_reduce, g, group=ctx.group)
         r = dist.get_rank(ctx.group)
         return g.narrow(ctx.dim, r * ctx.n, ctx.n), None, None
 
@@ -284,23 +363,72 @@ def all_gather_cat(x: torch.Tensor, dim: int, mesh: DeviceMesh, axis: str = "dat
     return _GatherCat.apply(x, dim, mesh.group(axis))
 
 
+class _Scatter(torch.autograd.Function):
+    """This rank's block of ``x`` along ``dim``, of ranks that compute alike;
+    the gradient is every rank's block gathered back."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        n = x.shape[dim] // dist.get_world_size(group)
+        return x.narrow(dim, dist.get_rank(group) * n, n)
+
+    @staticmethod
+    def backward(ctx, g):
+        return torch.cat(_all_gather(g.contiguous(), ctx.group), dim=ctx.dim), None, None
+
+
+class _Gather(torch.autograd.Function):
+    """Every rank's block joined along ``dim``, for ranks that compute alike
+    after it: each takes its own block of the (equal) gradient, unsummed."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group, ctx.n = dim, group, x.shape[dim]
+        return torch.cat(_all_gather(x, group), dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, dist.get_rank(ctx.group) * ctx.n, ctx.n), None, None
+
+
+def scatter_alike(x: torch.Tensor, dim: int, mesh: DeviceMesh, axis: str) -> torch.Tensor:
+    """This rank's block of ``x`` along ``dim`` where the ranks of ``axis``
+    compute alike (the same rows and replicated layers: a model group of a
+    model that is not split); the backward gathers the blocks' gradients so
+    that every rank holds the whole gradient again."""
+    return _Scatter.apply(x, dim, mesh.group(axis))
+
+
+def gather_alike(x: torch.Tensor, dim: int, mesh: DeviceMesh, axis: str) -> torch.Tensor:
+    """The inverse of :func:`scatter_alike`: the ranks' blocks joined along
+    ``dim``; the backward keeps this rank's block of a gradient every rank
+    computes alike (no sum: that would count it once a rank)."""
+    return _Gather.apply(x, dim, mesh.group(axis))
+
+
 def all_reduce_sum(x: torch.Tensor, mesh: DeviceMesh, axis: str = "data") -> torch.Tensor:
     """The sum of ``x`` over the ranks, differentiable (the gradient is
     summed over the ranks in turn)."""
     from torch.distributed.nn.functional import all_reduce
 
-    return all_reduce(x, group=mesh.group(axis))
+    return collective(all_reduce, x, group=mesh.group(axis))
 
 
 def all_reduce_(tensors: Iterable[torch.Tensor], mesh: DeviceMesh, axis: str = "data") -> None:
-    """Sum every tensor over the ranks in place, in one collective (one
-    flat buffer per dtype)."""
+    """Sum every tensor over the ranks of ``axis`` in place (``sum_over``)."""
+    sum_over(tensors, mesh.group(axis))
+
+
+def sum_over(tensors: Iterable[torch.Tensor], group) -> None:
+    """Sum every tensor over the ranks of ``group`` in place, in one
+    collective (one flat buffer per dtype)."""
     by_dtype: Dict[torch.dtype, List[torch.Tensor]] = {}
     for t in tensors:
         by_dtype.setdefault(t.dtype, []).append(t)
     for ts in by_dtype.values():
         flat = torch.cat([t.reshape(-1) for t in ts])
-        dist.all_reduce(flat, group=mesh.group(axis))
+        collective(dist.all_reduce, flat, group=group)
         torch._foreach_copy_(ts, [c.view_as(t) for c, t in zip(flat.split([t.numel() for t in ts]),
                                                                  ts)])
 
@@ -314,28 +442,39 @@ class Zero1Optimizer:
     shape (the whole tensor where no dim divides the data axis).
 
     ``step`` slices each parameter and its (already reduced) gradient, runs
-    the inner update on the slices and all-gathers the parameters, so every rank ends with the
-    same parameters as an unsharded optimiser. The update must be elementwise
-    (Adam, AdamW, SGD); clipping uses the global norm it is given.
+    the inner update on the slices and all-gathers the parameters, so every
+    rank ends with the same parameters as an unsharded optimiser. An
+    elementwise rule (Adam, AdamW, SGD) needs nothing more; adafactor is
+    given each slice's :class:`~..train.optim.Part` (the whole leaf's shape,
+    the data group's cut, and ``parts``' own cuts of a tensor-parallel
+    shard) and sums its statistics over them. Clipping uses the global norm
+    it is given. ``make_inner(slices, parts)`` builds the inner optimiser.
     ``state_dict`` gathers the moments into the unsharded optimiser's
     layout (a collective: every rank calls it); ``load_state_dict`` takes that
     layout and keeps the rank's slices."""
 
     def __init__(self, params: Iterable[torch.nn.Parameter], make_inner: Callable, mesh: DeviceMesh,
-                 axis: str = "data"):
+                 axis: str = "data", parts: Optional[Sequence] = None):
+        from multimodal_organ_segmentation_tpu_torch.train.optim import Part
+
         self.mesh, self.axis = mesh, axis
         self.full = list(params)
+        parts = list(parts) if parts is not None else [None] * len(self.full)
         n = int(mesh.shape[axis])
         self.dims = [_spec_dim(zero1_spec(tuple(p.shape), n, axis), axis) for p in self.full]
         r = mesh.axis_rank(axis)
-        self.shards = []
-        for p, d in zip(self.full, self.dims):
+        group = mesh.group(axis)
+        self.shards, self.parts = [], []
+        for p, d, part in zip(self.full, self.dims, parts):
+            part = part or Part(tuple(p.shape))
             if d is None:
                 self.shards.append(p)
             else:
                 c = p.shape[d] // n
                 self.shards.append(torch.nn.Parameter(p.detach().narrow(d, r * c, c).clone()))
-        self.inner = make_inner(self.shards)
+                part = Part(part.shape, part.cuts + ((d, group),))
+            self.parts.append(part)
+        self.inner = make_inner(self.shards, self.parts)
         self.clip_norm = self.inner.clip_norm
 
     @property
@@ -348,6 +487,16 @@ class Zero1Optimizer:
     def _slice(self, x: torch.Tensor, d: int) -> torch.Tensor:
         c = x.shape[d] // self.mesh.shape[self.axis]
         return x.narrow(d, self.mesh.axis_rank(self.axis) * c, c)
+
+    def _moment_dim(self, idx: int, key: str, v) -> Optional[int]:
+        """The dim of state entry ``key`` of parameter ``idx`` that ZeRO-1
+        slices, or None where the entry is whole on every rank."""
+        from multimodal_organ_segmentation_tpu_torch.train.optim import moment_dim
+
+        d = self.dims[idx]
+        if d is None or not isinstance(v, torch.Tensor):
+            return None
+        return moment_dim(key, v.dim(), self.parts[idx].shape, d)
 
     def step(self, grad_norm: Optional[torch.Tensor] = None) -> None:
         with torch.no_grad():
@@ -373,13 +522,10 @@ class Zero1Optimizer:
         group = self.mesh.group(self.axis)
         state = {}
         for idx, slot in sd["state"].items():
-            d = self.dims[idx]
             out = {}
             for k, v in slot.items():
-                if (d is not None and isinstance(v, torch.Tensor)
-                        and v.shape == self.shards[idx].shape):
-                    v = torch.cat(_all_gather(v, group), dim=d)
-                out[k] = v
+                d = self._moment_dim(idx, k, v)
+                out[k] = v if d is None else torch.cat(_all_gather(v, group), dim=d)
             state[idx] = out
         return {"state": state, "param_groups": sd["param_groups"]}
 
@@ -387,10 +533,8 @@ class Zero1Optimizer:
         state = {}
         for idx, slot in sd["state"].items():
             idx = int(idx)
-            d = self.dims[idx]
-            full = self.full[idx].shape
-            state[idx] = {k: (self._slice(v, d).clone() if d is not None
-                              and isinstance(v, torch.Tensor) and v.shape == full else v)
-                          for k, v in slot.items()}
+            state[idx] = {}
+            for k, v in slot.items():
+                d = self._moment_dim(idx, k, v)
+                state[idx][k] = v if d is None else self._slice(v, d).clone()
         self.inner.load_state_dict({"state": state, "param_groups": sd["param_groups"]})
-

@@ -25,7 +25,7 @@ from typing import List, Optional
 import torch
 import torch.distributed as dist
 
-from multimodal_organ_segmentation_tpu_torch.parallel.mesh import DeviceMesh, _staged
+from multimodal_organ_segmentation_tpu_torch.parallel.mesh import DeviceMesh, _staged, collective
 
 
 def _pass_on(tensors: List[torch.Tensor], group) -> List[torch.Tensor]:
@@ -41,8 +41,8 @@ def _pass_on(tensors: List[torch.Tensor], group) -> List[torch.Tensor]:
     staged = _staged(group, flat)
     send = flat.cpu() if staged else flat
     recv = torch.empty_like(send)
-    for req in dist.batch_isend_irecv([dist.P2POp(dist.isend, send, nxt, group),
-                                       dist.P2POp(dist.irecv, recv, prv, group)]):
+    for req in collective(dist.batch_isend_irecv, [dist.P2POp(dist.isend, send, nxt, group),
+                                                   dist.P2POp(dist.irecv, recv, prv, group)]):
         req.wait()
     recv = recv.to(flat.device)
     return [c.view_as(t).to(t.dtype) for c, t in

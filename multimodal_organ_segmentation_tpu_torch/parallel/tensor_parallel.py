@@ -40,11 +40,13 @@ replicated over it, as in JAX.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.distributed as dist
 from torch import nn
+
+from multimodal_organ_segmentation_tpu_torch.train.optim import Part, moment_dim
 
 
 @dataclass(frozen=True)
@@ -122,9 +124,11 @@ def _summed(x: torch.Tensor, group) -> torch.Tensor:
     f16 are summed in f32 and rounded once (as the whole layer's product
     accumulates in f32), which also suits gloo, whose CUDA reductions go
     through the host."""
+    from multimodal_organ_segmentation_tpu_torch.parallel.mesh import collective
+
     wide = torch.float32 if x.dtype in (torch.bfloat16, torch.float16) else x.dtype
     y = x.detach().to(wide, copy=True).contiguous()
-    dist.all_reduce(y, group=group)
+    collective(dist.all_reduce, y, group=group)
     return y.to(x.dtype)
 
 
@@ -251,32 +255,71 @@ def global_norm(grads: List[torch.Tensor], split: List[bool], tp: TP) -> torch.T
         norms = torch._foreach_norm([g.float() if g.dtype != torch.float64 else g for g in gs])
         return torch.linalg.vector_norm(torch.stack(norms)).square()
 
+    from multimodal_organ_segmentation_tpu_torch.parallel.mesh import collective
+
     own = sq([g for g, s in zip(grads, split) if s]).float()
-    dist.all_reduce(own, group=tp.group)
+    collective(dist.all_reduce, own, group=tp.group)
     return torch.sqrt(own + sq([g for g, s in zip(grads, split) if not s]).float())
 
 
-def _opt_tensors(sd, names: List[str], plan: TPPlan, fn) -> dict:
+def whole_shapes(model: nn.Module) -> Dict[str, Tuple[int, ...]]:
+    """Every parameter's whole shape by name: a split one's with its dim
+    times the model axis, the rest as they are."""
+    tp = model_tp(model)
+    splits = model.tp_plan.splits if tp is not None else {}
+    out = {}
+    for name, p in model.named_parameters():
+        shape = list(p.shape)
+        if name in splits:
+            shape[splits[name].dim] *= tp.size
+        out[name] = tuple(shape)
+    return out
+
+
+def leaf_parts(model: nn.Module) -> List[Optional[Part]]:
+    """One entry a parameter, in ``model.parameters()`` order: a split
+    parameter's :class:`Part` (its whole shape, cut along its split dim over
+    the model group), None for one held whole."""
+    tp = model_tp(model)
+    if tp is None:
+        return [None for _ in model.parameters()]
+    splits, shapes = model.tp_plan.splits, whole_shapes(model)
+    return [Part(shapes[n], ((splits[n].dim, tp.group),)) if n in splits else None
+            for n, _ in model.named_parameters()]
+
+
+def _opt_tensors(sd, names: List[str], plan: TPPlan, shapes: Dict[str, Tuple[int, ...]],
+                 fn) -> dict:
+    """``fn(split, v)`` on every state tensor that runs along its parameter's
+    split dim, with the ``Split`` moved to where that dim sits in the entry
+    (adafactor's factored moments drop an axis; one averaged over the split
+    dim is whole on every rank)."""
     splits = plan.splits
     state = {}
     for idx, slot in sd["state"].items():
         name = names[int(idx)]
         split = splits.get(name)
-        state[idx] = {k: (fn(split, name, v) if split is not None and isinstance(v, torch.Tensor)
-                          and v.dim() > 0 else v) for k, v in slot.items()}
+        state[idx] = {}
+        for k, v in slot.items():
+            d = (moment_dim(k, v.dim(), shapes[name], split.dim)
+                 if split is not None and isinstance(v, torch.Tensor) else None)
+            state[idx][k] = v if d is None else fn(Split(d, split.parts), v)
     return {"state": state, "param_groups": sd["param_groups"]}
 
 
-def gather_opt_state(sd, names: List[str], plan: TPPlan, mesh) -> dict:
+def gather_opt_state(sd, names: List[str], plan: TPPlan, shapes: Dict[str, Tuple[int, ...]],
+                     mesh) -> dict:
     """An optimiser state dict of a shard (moments by parameter index,
-    ``names[i]`` the parameter's state-dict name) in the whole model's
-    layout, gathered over the model group (a collective)."""
+    ``names[i]`` the parameter's state-dict name, ``shapes`` the whole
+    parameters' shapes by name) in the whole model's layout, gathered over
+    the model group (a collective)."""
     from multimodal_organ_segmentation_tpu_torch.parallel.mesh import _all_gather
 
     group = mesh.group("model")
-    return _opt_tensors(sd, names, plan, lambda s, n, v: s.gather(_all_gather(v, group)))
+    return _opt_tensors(sd, names, plan, shapes, lambda s, v: s.gather(_all_gather(v, group)))
 
 
-def shard_opt_state(sd, names: List[str], plan: TPPlan, rank: int) -> dict:
+def shard_opt_state(sd, names: List[str], plan: TPPlan, shapes: Dict[str, Tuple[int, ...]],
+                    rank: int) -> dict:
     """The inverse of :func:`gather_opt_state` for model index ``rank``."""
-    return _opt_tensors(sd, names, plan, lambda s, n, v: s.shard(v, plan.m, rank).clone())
+    return _opt_tensors(sd, names, plan, shapes, lambda s, v: s.shard(v, plan.m, rank).clone())

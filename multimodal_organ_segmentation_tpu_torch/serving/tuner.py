@@ -16,7 +16,9 @@ fetched to the host (the sum of the label map), which waits for the card.
 ``compile_s`` is the first, warm-up run of a candidate (eager PyTorch
 compiles nothing; the first run pays the kernel build and the allocator).
 A failing candidate (out of memory at a large chunk) is recorded and the
-sweep goes on.
+sweep goes on. Under ``torchrun`` the ranks time the multi-rank service's
+pass together and agree on every candidate (``tune_serving``); rank 0
+writes the profile.
 
 One difference from the JAX tuner: the candidates at overlap ≥ 0.25 (the
 Dice-parity tier) are the pool for "best" unless ``tune.allow_turbo`` is
@@ -50,23 +52,6 @@ def select_best(results: List[Dict[str, Any]], allow_turbo: bool = False
     return max(pool, key=lambda r: r["vol_per_min"]) if pool else None
 
 
-def refuse_ranks() -> None:
-    """The tuner times one device's serving pass and runs as one process. In
-    a job of several ranks a candidate that fails on one rank (out of memory
-    at a large chunk, which the sweep records and passes over) would leave
-    the others waiting in the pass's collectives, and ranks that time
-    candidates apart could pick different winners; the chunk size it picks
-    is a per-device setting, which a multi-rank service takes as it is."""
-    from multimodal_organ_segmentation_tpu_torch.parallel.mesh import world
-
-    if world()[1] > 1:
-        raise RuntimeError(
-            f"--mode tune runs as one process (a job of {world()[1]} ranks here): a candidate "
-            "that fails on one rank would leave the others waiting in its collectives, and the "
-            "chunk size it picks is per device; tune on one card without torchrun and serve "
-            "the multi-rank job with the profile it writes")
-
-
 def tune_serving(
     config,
     logger=None,
@@ -89,18 +74,34 @@ def tune_serving(
     carries ``vol_per_min`` or ``error``. Weights come from ``checkpoint``
     when given (the timing does not depend on their values, so a random
     init measures the same work). Runs on the card unless ``device`` (or the
-    config's ``hardware.device``) names the CPU. Runs as one process: in a
-    job of several ranks it raises (see ``refuse_ranks``).
+    config's ``hardware.device``) names the CPU.
+
+    In a job of several ranks (``torchrun``) every rank calls it: each
+    candidate runs the pass the multi-rank service runs (the trainer's
+    inference mesh: tile chunks over the data axis, one ``all_reduce`` of
+    the blend), its times are the slowest rank's, and every rank returns
+    the same table and pick. The ranks settle each candidate's outcome by
+    votes every rank reaches whether or not its own pass raised
+    (``parallel.mesh.agreement``): a vote in front of each collective of the
+    pass and one at its end, so a candidate that fails on one rank (out of
+    memory at a large chunk) is recorded as failed on every rank, with the
+    failing rank's error, and the sweep goes on. The votes run on the host
+    over a gloo group and wait for no work on the card; the times include
+    them (under tensor parallelism a vote a split layer).
     """
     import torch
-
-    refuse_ranks()
+    import torch.distributed as dist
 
     from multimodal_organ_segmentation_tpu_torch.cli import resolve_device
     from multimodal_organ_segmentation_tpu_torch.ops.sliding_window import (
         SlidingWindowRunner,
         ensemble_run_sw,
         predict_labels,
+    )
+    from multimodal_organ_segmentation_tpu_torch.parallel.mesh import (
+        PeerFailed,
+        agreement,
+        control_group,
     )
     from multimodal_organ_segmentation_tpu_torch.train.trainer import Trainer
 
@@ -135,6 +136,7 @@ def tune_serving(
     tta = bool(config.get("inference.tta", False))
 
     volume = torch.zeros((*vol_shape, n_mod), dtype=torch.float32, device=device)
+    control = control_group() if dist.is_available() and dist.is_initialized() else None
     results: List[Dict[str, Any]] = []
     for ov in overlaps:
         for sw in sw_batches:
@@ -151,20 +153,36 @@ def tune_serving(
                 labels = predict_labels(run_sw, volume, tta=tta)
                 return float(labels.sum())
 
-            try:
-                t0 = time.perf_counter()
-                run_once()  # warm-up: kernel build, allocator
-                rec["compile_s"] = round(time.perf_counter() - t0, 1)
-                t0 = time.perf_counter()
-                for _ in range(repeats):
-                    run_once()
-                dt = (time.perf_counter() - t0) / repeats
-                rec["seconds_per_volume"] = round(dt, 3)
-                rec["vol_per_min"] = round(60.0 / dt, 2)
-            except Exception as e:  # out of memory etc.: record, keep sweeping
-                rec["error"] = f"{type(e).__name__}: {str(e)[:200]}"
-                if device.type == "cuda":
-                    torch.cuda.empty_cache()
+            with agreement(control) as agree:
+                try:
+                    t0 = time.perf_counter()
+                    run_once()  # warm-up: kernel build, allocator
+                    compile_s = time.perf_counter() - t0
+                    t0 = time.perf_counter()
+                    for _ in range(repeats):
+                        run_once()
+                    dt = (time.perf_counter() - t0) / repeats
+                    if agree is not None:  # every rank's pass ended: the slowest rank's times
+                        failed, (compile_s, dt) = agree.finish(False, (compile_s, dt))
+                        if failed:
+                            raise PeerFailed("the candidate failed on another rank")
+                    rec["compile_s"] = round(compile_s, 1)
+                    rec["seconds_per_volume"] = round(dt, 3)
+                    rec["vol_per_min"] = round(60.0 / dt, 2)
+                except Exception as e:  # out of memory etc.: record, keep sweeping
+                    rec["error"] = f"{type(e).__name__}: {str(e)[:200]}"
+                    if agree is not None:
+                        # this rank's vote, unless one already told it; then
+                        # every rank records the first failing rank's error
+                        agree.finish(True)
+                        errors = [None] * dist.get_world_size()
+                        dist.all_gather_object(
+                            errors, None if isinstance(e, PeerFailed) else rec["error"],
+                            group=control)
+                        r = next(i for i, err in enumerate(errors) if err is not None)
+                        rec["error"] = f"{errors[r]} (rank {r})"
+                    if device.type == "cuda":
+                        torch.cuda.empty_cache()
             results.append(rec)
             if logger:
                 logger.info(

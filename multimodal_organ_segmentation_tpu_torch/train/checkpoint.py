@@ -14,14 +14,19 @@ In a job of several ranks every rank holds the same state (a ZeRO-1
 optimiser gathers its moments into the unsharded layout when the tree is
 taken, on every rank), rank 0 alone writes, and a synchronous save ends at a
 barrier of all ranks, so no rank reads a checkpoint before it is on disk.
+
+``from_jax_checkpoint`` maps a JAX training state (the Orbax tree and
+``meta.json`` of the JAX package's ``train/checkpoint.py``) onto this
+layout, so that a JAX run resumes here.
 """
 
 from __future__ import annotations
 
 import shutil
 from pathlib import Path
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Mapping, Optional
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -259,3 +264,168 @@ class CheckpointPolicy:
                 best_metric=best_metric, history=history,
             )
         return best_metric
+
+
+# -- a JAX training state, resumed here ------------------------------------------------
+
+_MOMENTS = {"adam": ("mu", "nu"), "adamw": ("mu", "nu"), "sgd": ("trace",),
+            "adafactor": ("v_row", "v_col", "v")}
+
+
+def _find_state(node: Any, keys) -> Optional[Mapping]:
+    """The first node of a restored optax state (nested dicts, lists and
+    Nones) that holds every one of ``keys``."""
+    if isinstance(node, Mapping):
+        if set(keys) <= set(node):
+            return node
+        children = list(node.values())
+    elif isinstance(node, (list, tuple)):
+        children = list(node)
+    else:
+        return None
+    for child in children:
+        found = _find_state(child, keys)
+        if found is not None:
+            return found
+    return None
+
+
+def _rebuild(node: Any, fn, path=()):
+    if isinstance(node, Mapping):
+        return {k: _rebuild(v, fn, path + (k,)) for k, v in node.items()}
+    return fn(path, node)
+
+
+def _factored_from_jax(name: str, params: Mapping, state: Mapping, convert) -> Dict[str, Dict]:
+    """Adafactor's ``v_row`` / ``v_col`` / ``v`` of a flax params tree onto the
+    port's parameters: each factored moment is spread back over the axis it
+    averages and carried through the weights' layout maps (``convert``),
+    with a probe that numbers that axis to find where it lands; the port's
+    ``v_row`` is then the moment whose axis lands on the port's largest
+    factored axis, ``v_col`` the other (equal sizes may swap them)."""
+    from multimodal_organ_segmentation_tpu_torch.train.optim import _factored_dims
+
+    def at(tree, path):
+        for k in path:
+            tree = tree[k]
+        return np.asarray(tree, np.float32)
+
+    def spread(key, index):
+        """Each factored leaf's moment ``key`` (None: a probe numbering the
+        axis) broadcast over the axis it averages, ``_factored_dims``' entry
+        ``index`` (1: the largest, averaged by ``v_row``; 0: ``v_col``'s);
+        zeros elsewhere."""
+        def fn(path, p):
+            shape = np.shape(p)
+            dims = _factored_dims(shape)
+            if dims is None:
+                return np.zeros(shape, np.float32)
+            gone = dims[index]
+            if key is None:
+                axis = [1] * len(shape)
+                axis[gone] = shape[gone]
+                return np.broadcast_to(np.arange(shape[gone], dtype=np.float32).reshape(axis), shape)
+            return np.broadcast_to(np.expand_dims(at(state[key], path), gone), shape)
+        return convert(_rebuild(params, fn))
+
+    def landed(probe) -> int:
+        return next(a for a in range(probe.dim()) if probe.shape[a] > 1
+                    and not torch.equal(probe.narrow(a, 0, 1), probe.narrow(a, 1, 1)))
+
+    whole = convert(_rebuild(params, lambda path, p: at(state["v"], path)
+                             if _factored_dims(np.shape(p)) is None
+                             else np.zeros(np.shape(p), np.float32)))
+    rows, cols, row_axis, col_axis = (spread("v_row", 1), spread("v_col", 0), spread(None, 1),
+                                      spread(None, 0))
+    out = {}
+    for key, v in whole.items():
+        dims = _factored_dims(tuple(v.shape))
+        if dims is None:
+            out[key] = {"v": v}
+            continue
+        d1, d0 = dims
+        by_axis = {landed(row_axis[key]): rows[key], landed(col_axis[key]): cols[key]}
+        if set(by_axis) != {d0, d1}:
+            raise ValueError(f"{name}: the factored axes of {key} {tuple(v.shape)} land on "
+                             f"{sorted(by_axis)}, the port's rule picks {[d1, d0]}")
+        out[key] = {"v_row": by_axis[d0].select(d0, 0).contiguous(),
+                    "v_col": by_axis[d1].select(d1, 0).contiguous()}
+    return out
+
+
+def from_jax_checkpoint(config, tree: Mapping[str, Any], meta: Optional[Mapping] = None
+                        ) -> Dict[str, Any]:
+    """A JAX training state (the tree the JAX package's ``save_checkpoint``
+    writes and its ``load_checkpoint`` restores, as nested dicts, lists and
+    numpy arrays) as the tree ``Trainer.resume`` takes, for ``config`` (the
+    run's config: the model and the optimiser to map onto). Returns
+    ``{"tree": ..., "meta": ...}``; write it with :func:`save_checkpoint`
+    (``scripts/jax_checkpoint_to_torch.py`` does both ends).
+
+    - weights and batch statistics: ``models/convert.py::params_from_jax``,
+      any family ``build_model`` builds; EMA weights alike;
+    - the step; ``meta`` (``epoch``, ``best_metric``, ``history``,
+      ``step_in_epoch``, ``key_counter``) as it is;
+    - the optimiser moments leaf by leaf through the same layout maps:
+      adam/adamw's ``mu``/``nu`` and count, sgd's momentum trace, and
+      adafactor's ``v_row``/``v_col``/``v`` and count onto the port's
+      factored axes in torch layout (a SwinUNETR whose blocks are stacked,
+      ``scan_blocks``, steps each stack as one adafactor leaf, which the
+      port's unrolled blocks cannot hold: refused). Either leading chain
+      stage (``clip`` or ``identity``) carries no state.
+
+    The parameter order (the optimiser's indices) is the model's as
+    ``build_model(config)`` builds it in this process."""
+    from multimodal_organ_segmentation_tpu_torch.models.build import build_model
+    from multimodal_organ_segmentation_tpu_torch.models.convert import params_from_jax
+    from multimodal_organ_segmentation_tpu_torch.train.optim import make_optimizer
+    from multimodal_organ_segmentation_tpu_torch.utils.config import ConfigNode
+
+    config = config if isinstance(config, ConfigNode) else ConfigNode(dict(config))
+    name = str(config.get("model.name", "swin_unetr")).lower()
+    stats = (tree.get("extra") or {}).get("batch_stats")
+    params = params_from_jax(name, tree["params"], stats)
+    model = build_model(config, device="cpu", train=True)
+    names = [n for n, _ in model.named_parameters()]
+    want = set(model.state_dict())
+    if set(params) != want:
+        raise ValueError(f"the JAX checkpoint does not hold this config's {name}: missing "
+                         f"{sorted(want - set(params))}, extra {sorted(set(params) - want)}")
+    def convert(moments):
+        return params_from_jax(name, moments)
+
+    ema = tree.get("ema_params")
+    ema = {n: t for n, t in convert(ema).items() if n in names} if ema else None
+
+    opt_name = str(config.get("training.optimizer.name", "adamw")).lower()
+    opt_name = opt_name if opt_name in _MOMENTS else "adamw"
+    keys = _MOMENTS[opt_name]
+    state = _find_state(tree.get("opt_state"), keys)
+    if state is None:
+        raise ValueError(f"the JAX optimiser state holds no {keys} moments of a {opt_name} "
+                         "optimiser: the config's training.optimizer.name must be the run's")
+    count = int(np.asarray(state.get("count", 0))) if "count" in state else None
+    if opt_name == "adafactor":
+        if _find_state(tree["params"], ("blocks",)) is not None:
+            raise ValueError("adafactor of a SwinUNETR with scan_blocks: each stacked leaf is one "
+                             "adafactor leaf (its statistics span the stage's blocks), which the "
+                             "port's unrolled blocks cannot carry")
+        moments = _factored_from_jax(name, tree["params"], state, convert)
+        slots = {n: {"step": count, **moments[n]} for n in names}
+    elif opt_name == "sgd":
+        trace = convert(state["trace"])
+        slots = {n: {"momentum_buffer": trace[n]} for n in names}
+    else:
+        mu, nu = convert(state["mu"]), convert(state["nu"])
+        slots = {n: {"step": torch.tensor(float(count)), "exp_avg": mu[n], "exp_avg_sq": nu[n]}
+                 for n in names}
+    groups = make_optimizer(config, model.parameters()).state_dict()["param_groups"]
+    lr = _find_state(tree.get("opt_state"), ("learning_rate",))
+    if lr is not None:
+        for g in groups:
+            g["lr"] = float(np.asarray(lr["learning_rate"]))
+    out = {"step": int(np.asarray(tree.get("step", 0))), "params": params,
+           "opt_state": {"state": {i: slots[n] for i, n in enumerate(names)},
+                         "param_groups": groups},
+           "ema_params": ema}
+    return {"tree": out, "meta": dict(meta or {})}

@@ -30,10 +30,13 @@ Parity notes:
 from __future__ import annotations
 
 import math
-from typing import Iterable, List, Optional
+from dataclasses import dataclass
+from typing import Any, Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from multimodal_organ_segmentation_tpu_torch.parallel.mesh import sum_over
 
 
 def global_norm(grads: Iterable[torch.Tensor]) -> torch.Tensor:
@@ -81,19 +84,83 @@ class ChainedOptimizer:
         self.inner.load_state_dict(state)
 
 
-def _factored_dims(shape, min_dim_size_to_factor: int):
+def _factored_dims(shape, min_dim_size_to_factor: int = 128):
     """optax's rule: the two largest axes (second largest, largest), or None
-    when fewer than two axes or the second largest is under the minimum."""
+    when fewer than two axes or the second largest is under the minimum.
+    Between equal sizes the later axis counts as the larger (a stable sort:
+    numpy's default sort may break the tie another way on another CPU, and a
+    checkpoint's ``v_row`` / ``v_col`` must mean the same axes wherever it
+    is read; the update is symmetric in the two)."""
     if len(shape) < 2:
         return None
-    order = np.argsort(shape)
+    order = np.argsort(shape, kind="stable")
     if shape[order[-2]] < min_dim_size_to_factor:
         return None
     return int(order[-2]), int(order[-1])
 
 
-def _rms(x: torch.Tensor) -> torch.Tensor:
-    return torch.sqrt(torch.mean(x * x))
+def moment_dim(key: str, ndim: int, shape, dim: int) -> Optional[int]:
+    """Where dim ``dim`` of a parameter whose whole shape is ``shape`` sits in
+    its optimiser-state entry ``key`` of ``ndim`` dims: the same dim in a
+    moment shaped like the parameter; in adafactor's factored ``v_row`` /
+    ``v_col`` the dim shifted past the averaged axis. None where the entry
+    does not run along ``dim``: a step count, or a factored moment averaged
+    over ``dim`` (whole on every rank that holds a piece of the leaf)."""
+    if key in ("v_row", "v_col"):
+        d1, d0 = _factored_dims(tuple(shape))
+        gone = d0 if key == "v_row" else d1
+        return None if dim == gone else dim - int(dim > gone)
+    return dim if ndim == len(shape) and ndim > 0 else None
+
+
+@dataclass(frozen=True)
+class Part:
+    """A parameter held in pieces: ``shape`` is the whole leaf's, and each of
+    ``cuts`` is ``(dim, group)``, a dim cut into equal pieces over the ranks
+    of ``group`` (ZeRO-1 over the data group, tensor parallelism over the
+    model group; one leaf may carry both)."""
+
+    shape: Tuple[int, ...]
+    cuts: Tuple[Tuple[int, Any], ...] = ()
+
+    def groups(self, dim: Optional[int] = None) -> List[Any]:
+        """The groups that cut ``dim`` (every cut's group for None)."""
+        return [g for d, g in self.cuts if dim is None or d == dim]
+
+
+class _Sums:
+    """Partial sums of pieces of leaves, each to be summed over the groups
+    that cut it; ``reduce`` issues one collective a group, the groups in the
+    order they came (the same on every rank: every rank walks the same
+    parameters)."""
+
+    def __init__(self):
+        self.by_group: Dict[Any, List[torch.Tensor]] = {}
+
+    def add(self, t: torch.Tensor, groups: List[Any]) -> torch.Tensor:
+        for g in groups:
+            self.by_group.setdefault(g, []).append(t)
+        return t
+
+    def reduce(self) -> None:
+        for g, ts in self.by_group.items():
+            sum_over(ts, g)
+        self.by_group = {}
+
+
+def _move(p, group, part, state, p_sq, u, u_sq) -> None:
+    """Steps 2 to 6 of :class:`Adafactor` on one leaf, given the whole
+    leaf's Σp² and Σu²."""
+    n = float(np.prod(part.shape))
+    u = u / torch.clamp(torch.sqrt(u_sq / n) / group["clipping_threshold"], min=1.0)
+    u = u * group["lr"]
+    p_rms = torch.sqrt(p_sq / n)
+    u = u * torch.where(p_rms <= group["min_scale"],
+                        torch.full_like(p_rms, group["min_scale"]), p_rms)
+    if group["weight_decay"]:
+        u = u + group["weight_decay"] * p
+    p.add_(-u)
+    state["step"] += 1
 
 
 class Adafactor(torch.optim.Optimizer):
@@ -115,25 +182,43 @@ class Adafactor(torch.optim.Optimizer):
     The factored axes are chosen by size, so the port's layouts (torch's
     ``[out, in, ...]`` where flax has ``[..., in, out]``) factor the same
     axes; between two axes of equal size the choice swaps row and column,
-    which the rule is symmetric in (up to the order of one mean)."""
+    which the rule is symmetric in (up to the order of one mean).
+
+    A parameter held in pieces over ranks (``parts``: one :class:`Part` or
+    None a parameter, in order) steps as the whole leaf would: whether it
+    is factored, and over which axes, follows the whole shape, and the three
+    statistics that are not elementwise (the row and column means of 1, the
+    update's RMS of 2, the parameter's RMS of 4) sum their pieces over the
+    groups that cut them (:func:`sum_over`), three collectives a step for
+    each group. A rank keeps
+    its piece of ``v``, and of ``v_row`` / ``v_col`` along a cut they run
+    along; a factored moment averaged over a cut dim is whole on every
+    rank."""
 
     def __init__(self, params, lr: float = 1e-3, weight_decay: float = 0.0,
                  decay_rate: float = 0.8, min_dim_size_to_factor: int = 128,
-                 clipping_threshold: float = 1.0, eps: float = 1e-30, min_scale: float = 1e-3):
+                 clipping_threshold: float = 1.0, eps: float = 1e-30, min_scale: float = 1e-3,
+                 parts: Optional[Sequence[Optional[Part]]] = None):
+        params = list(params)
         defaults = dict(lr=lr, weight_decay=weight_decay, decay_rate=decay_rate,
                         min_dim_size_to_factor=min_dim_size_to_factor,
                         clipping_threshold=clipping_threshold, eps=eps, min_scale=min_scale)
         super().__init__(params, defaults)
+        flat = [p for group in self.param_groups for p in group["params"]]
+        parts = list(parts) if parts is not None else [None] * len(flat)
+        self.parts = {p: part or Part(tuple(p.shape)) for p, part in zip(flat, parts)}
 
     @torch.no_grad()
     def step(self, closure=None):
+        work, sums = [], _Sums()
+        # 1. the statistics of g² + eps (an unfactored leaf's v at once, a
+        #    factored leaf's row and column sums) and Σp², summed over the cuts
         for group in self.param_groups:
             for p in group["params"]:
                 if p.grad is None:
                     continue
-                g = p.grad
-                state = self.state[p]
-                dims = _factored_dims(tuple(p.shape), group["min_dim_size_to_factor"])
+                part, state, g = self.parts[p], self.state[p], p.grad
+                dims = _factored_dims(part.shape, group["min_dim_size_to_factor"])
                 if not state:
                     state["step"] = 0
                     if dims is not None:
@@ -146,31 +231,53 @@ class Adafactor(torch.optim.Optimizer):
                 decay = (1.0 - t ** (-group["decay_rate"])).to(p.device)
                 grad_sqr = g * g + group["eps"]
                 if dims is not None:
-                    d1, d0 = dims
-                    v_row = decay * state["v_row"] + (1.0 - decay) * grad_sqr.mean(dim=d0)
-                    v_col = decay * state["v_col"] + (1.0 - decay) * grad_sqr.mean(dim=d1)
-                    state["v_row"], state["v_col"] = v_row, v_col
-                    reduced_d1 = d1 - 1 if d1 > d0 else d1
-                    row_factor = (v_row / v_row.mean(dim=reduced_d1, keepdim=True)) ** -0.5
-                    u = g * row_factor.unsqueeze(d0) * (v_col ** -0.5).unsqueeze(d1)
+                    stats = (sums.add(grad_sqr.sum(dim=dims[1]), part.groups(dims[1])),
+                             sums.add(grad_sqr.sum(dim=dims[0]), part.groups(dims[0])))
                 else:
-                    v = decay * state["v"] + (1.0 - decay) * grad_sqr
-                    state["v"] = v
-                    u = g * v ** -0.5
-                u = u / torch.clamp(_rms(u) / group["clipping_threshold"], min=1.0)
-                u = u * group["lr"]
-                p_rms = _rms(p)
-                u = u * torch.where(p_rms <= group["min_scale"],
-                                    torch.full_like(p_rms, group["min_scale"]), p_rms)
-                if group["weight_decay"]:
-                    u = u + group["weight_decay"] * p
-                p.add_(-u)
-                state["step"] += 1
+                    state["v"] = decay * state["v"] + (1.0 - decay) * grad_sqr
+                    stats = None
+                p_sq = sums.add((p * p).sum(), part.groups())
+                work.append((p, group, part, state, dims, decay, stats, p_sq))
+        sums.reduce()
+        # 2. the factored moments, and their rows' sums over the second axis
+        row_sums = []
+        for p, group, part, state, dims, decay, stats, _ in work:
+            if dims is None:
+                row_sums.append(None)
+                continue
+            d1, d0 = dims
+            state["v_row"] = decay * state["v_row"] + (1.0 - decay) * (stats[0] / part.shape[d0])
+            state["v_col"] = decay * state["v_col"] + (1.0 - decay) * (stats[1] / part.shape[d1])
+            reduced_d1 = d1 - 1 if d1 > d0 else d1
+            row_sums.append(sums.add(state["v_row"].sum(dim=reduced_d1, keepdim=True),
+                                     part.groups(d1)))
+        sums.reduce()
+        # 3. the update: a leaf held whole moves at once, a leaf in pieces
+        #    once its Σu² is summed over the cuts
+        pending = []
+        for (p, group, part, state, dims, _, _, p_sq), row_sum in zip(work, row_sums):
+            if dims is not None:
+                d1, d0 = dims
+                row_factor = (state["v_row"] / (row_sum / part.shape[d1])) ** -0.5
+                u = p.grad * row_factor.unsqueeze(d0) * (state["v_col"] ** -0.5).unsqueeze(d1)
+            else:
+                u = p.grad * state["v"] ** -0.5
+            u_sq = (u * u).sum()
+            if part.cuts:
+                pending.append((p, group, part, state, p_sq, u, sums.add(u_sq, part.groups())))
+            else:
+                _move(p, group, part, state, p_sq, u, u_sq)
+        sums.reduce()
+        for args in pending:
+            _move(*args)
 
 
-def make_optimizer(config, params: Iterable[torch.nn.Parameter]) -> ChainedOptimizer:
+def make_optimizer(config, params: Iterable[torch.nn.Parameter],
+                   parts: Optional[Sequence[Optional[Part]]] = None) -> ChainedOptimizer:
     """Build the configured optimiser over ``params`` with a learning rate
-    that ``set_learning_rate`` rewrites."""
+    that ``set_learning_rate`` rewrites. ``parts`` says which parameters are
+    pieces of a leaf held over several ranks (:class:`Part`): adafactor
+    steps them as whole leaves; the elementwise rules need nothing."""
     opt_cfg = config.get("training.optimizer", {}) or {}
     name = str(opt_cfg.get("name", "adamw")).lower()
     lr = float(opt_cfg.get("lr", 1e-4))
@@ -184,7 +291,7 @@ def make_optimizer(config, params: Iterable[torch.nn.Parameter]) -> ChainedOptim
         momentum = float(opt_cfg.get("momentum", 0.9))
         inner = torch.optim.SGD(params, lr=lr, momentum=momentum, weight_decay=wd)
     elif name == "adafactor":
-        inner = Adafactor(params, lr=lr, weight_decay=wd)
+        inner = Adafactor(params, lr=lr, weight_decay=wd, parts=parts)
     else:  # adamw (and fallback)
         b1, b2 = tuple(opt_cfg.get("betas", [0.9, 0.999]))
         inner = torch.optim.AdamW(params, lr=lr, betas=(float(b1), float(b2)), eps=1e-8,

@@ -37,7 +37,9 @@ model group (``parallel/tensor_parallel.py``): the ranks of a model group
 hold the same rows, ``grad_norm`` sums the split leaves' squares over the
 group and counts each replicated leaf once, so ``grad_norm`` and
 ``skip_nonfinite`` decide the same on every rank. ``parallel.zero1`` keeps
-each rank's slice of the optimiser moments only. Validation shards the
+each rank's slice of the optimiser moments only. Adafactor steps a leaf held
+in pieces (a ZeRO-1 slice, a tensor-parallel shard) as the whole leaf, its
+statistics summed over the ranks that hold the pieces. Validation shards the
 batch; inference shards the tile chunks (``inference.data_parallel``) or,
 with ``case_shard: auto``, the cases, over the data axis, whose native-eval
 metrics are merged. Checkpoints hold the unsharded layout (a tensor-parallel
@@ -144,7 +146,8 @@ class TrainState:
             params = gather_state_dict(params, plan, tp.mesh)
             ema = gather_state_dict(ema, plan, tp.mesh) if ema is not None else None
             if opt is not None:
-                opt = tpar.gather_opt_state(opt, _param_names(self.model), plan, tp.mesh)
+                opt = tpar.gather_opt_state(opt, _param_names(self.model), plan,
+                                            tpar.whole_shapes(self.model), tp.mesh)
         return {"step": int(self.step), "params": params, "opt_state": opt, "ema_params": ema}
 
 
@@ -440,21 +443,15 @@ class Trainer:
         pretrained = self.config.get("model.pretrained", None)
         if pretrained and not self._resume_from:
             self._import_pretrained(pretrained)
-        adafactor = str(self.config.get("training.optimizer.name", "adamw")).lower() == "adafactor"
-        if adafactor and tpar.model_tp(self.model) is not None:
-            raise NotImplementedError(
-                "tensor parallelism with adafactor is not ported: the factored moments of a "
-                "split leaf are not those of the whole leaf; use adamw, adam or sgd")
+        # a tensor-parallel shard's split leaves, which adafactor steps whole
+        parts = tpar.leaf_parts(self.model)
         if self._zero1_active():
             # ZeRO-1: each rank keeps 1/data of the moments (parallel/mesh.py)
-            if adafactor:
-                raise NotImplementedError(
-                    "parallel.zero1 with adafactor is not ported: its factored moments are not "
-                    "elementwise; use adamw, adam or sgd")
             optimizer = Zero1Optimizer(
-                self.model.parameters(), lambda ps: make_optimizer(self.config, ps), self.mesh)
+                self.model.parameters(), lambda ps, pts: make_optimizer(self.config, ps, pts),
+                self.mesh, parts=parts)
         else:
-            optimizer = make_optimizer(self.config, self.model.parameters())
+            optimizer = make_optimizer(self.config, self.model.parameters(), parts)
         ema = self._fresh_ema() if self._ema_decay() is not None else None
         self.state = TrainState(step=0, model=self.model, optimizer=optimizer, ema_params=ema)
         self._train_step = None
@@ -524,7 +521,7 @@ class Trainer:
             tp = tpar.model_tp(self.model)
             if tp is not None:
                 opt = tpar.shard_opt_state(opt, _param_names(self.model), self.model.tp_plan,
-                                           tp.rank)
+                                           tpar.whole_shapes(self.model), tp.rank)
             self.state.optimizer.load_state_dict(opt)
 
     def resume(self, path) -> None:

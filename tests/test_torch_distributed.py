@@ -29,6 +29,7 @@ three data-parallel AdamW steps: loss 1e-4,
 
 import csv
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -68,6 +69,14 @@ RING_TOL, RING_GRAD_TOL = 2e-5, 1e-4
 BLEND_TOL, SLICE_TOL, MODEL_TOL = 1e-5, 1e-4, 1e-4
 LOSS_TOL, GNORM_RTOL, STATS_TOL, ZERO1_TOL, METRIC_TOL = 1e-4, 1e-3, 1e-5, 1e-6, 1e-6
 TP_LR, TP_WEIGHT_TOL, RESUME_TOL = 0.1, 1e-4, 1e-6
+# adafactor's learning rates: its first step is the sign of each gradient
+# (times lr × the leaf's rms), so a gradient element that rounding leaves at
+# noise level moves by that much either way, and two steps from the seeded
+# weights are held to JAX at AF_LR0; a step with moments in play (a resumed
+# checkpoint's second) at AF_LR, where the factored conv (rms about
+# 1/sqrt(27 · 128)) moves by more than ten times the weight tolerance, so
+# that a wrong factored statistic shows
+AF_LR0, AF_LR = 1e-4, 3e-2
 K, MICRO = 3, 4  # three steps of a global micro-batch of 4, accumulation 1
 CASES = {"case_a": (20, 18, 22), "case_b": (18, 20, 17), "case_c": (22, 19, 20)}
 AFFINE = np.diag([1.5, 1.2, 2.0, 1.0])
@@ -207,22 +216,29 @@ def _jax_dp_steps(flax_mod, cfg, variables, images, labels):
     mesh = jmake_mesh(None, jax.devices()[:2])
     spec = lambda x: NamedSharding(mesh, P(*([None, "data"] + [None] * (x.ndim - 2))))
     put = lambda x: jax.device_put(x, spec(x))
+    # the state placed as the step's outputs are: one compile for every step
     return jax_train_steps(flax_mod, cfg, variables, [put(x) for x in images],
-                           [put(y) for y in labels], 1)
+                           [put(y) for y in labels], 1,
+                           place=lambda s: jax.device_put(s, NamedSharding(mesh, P())))
 
 
 @pytest.fixture(scope="module")
 def models():
     """The JAX references' models and seeded weights, built once for the
-    module: the tiny cross-attention SwinUNETR and the batch-norm UNet3D,
+    module: the tiny cross-attention SwinUNETR, the batch-norm UNet3D and
+    its variant with a 128-channel block (adafactor's factored moments),
     with their port state dicts."""
     sflax = jswin.build_swin_unetr(JConfig(_swin_cfg()))
     svars = seeded_variables(sflax, np.zeros((1, 32, 32, 32, 2), np.float32), train=False, seed=7)
     bflax = junet.build_unet3d(JConfig(_unet_cfg(Path("."))))
     bvars = seeded_variables(bflax, np.zeros((1, 16, 16, 16, 2), np.float32), train=False, seed=11)
+    aflax = junet.build_unet3d(JConfig(_af_cfg(Path("."), "af", AF_LR0)))
+    avars = seeded_variables(aflax, np.zeros((1, 8, 8, 8, 2), np.float32), train=False, seed=19)
     return {"swin": (sflax, svars, convert.swin_unetr_params_from_jax(svars)),
             "unet": (bflax, bvars, convert.params_from_jax("unet3d", bvars["params"],
-                                                           bvars["batch_stats"]))}
+                                                           bvars["batch_stats"])),
+            "af": (aflax, avars, convert.params_from_jax("unet3d", avars["params"],
+                                                         avars["batch_stats"]))}
 
 
 def _tp_cfg(cfg, name):
@@ -236,7 +252,160 @@ def _tp_cfg(cfg, name):
                          "loss": {"name": "dice_ce", "dice_weight": 0.5, "ce_weight": 0.5}}}
 
 
-def test_ring_attention_on_four_ranks(tmp_path, models):
+def _af_cfg(root, name, lr, **parallel):
+    """The batch-norm UNet3D with a 128-channel block (its 3³ conv
+    ``[128, 128, 3, 3, 3]`` has factored moments) on 8³ patches, trained by
+    adafactor at ``lr`` over a global micro-batch of ``MICRO``."""
+    cfg = _unet_cfg(root)
+    cfg["experiment"]["name"] = name
+    cfg["model"]["backbone"].update(features=[4, 128], img_size=[8, 8, 8])
+    cfg["training"]["optimizer"] = {"name": "adafactor", "lr": lr, "weight_decay": 1e-5}
+    if parallel:
+        cfg["parallel"] = parallel
+    return cfg
+
+
+def _af_batch():
+    rng = np.random.default_rng(23)
+    return (rng.standard_normal((2, 1, MICRO, 8, 8, 8, 2)).astype(np.float32),
+            rng.integers(0, 4, size=(2, 1, MICRO, 8, 8, 8)).astype(np.int32))
+
+
+_AF_REF = {}
+FACTORED = "down0.block.conv2.weight"
+
+
+def _af_reference(models) -> dict:
+    """JAX's two adafactor steps of the ``_af_cfg`` UNet3D with each
+    micro-batch sharded over a 2-device mesh, at ``AF_LR0`` and at ``AF_LR``
+    (one compiled step: the learning rate is an injected hyperparameter),
+    run once for both spawns: each run's weights and batch statistics after
+    each step and its metrics. The second step at ``AF_LR`` moves the
+    factored conv by more than ten times the weight tolerance."""
+    from multimodal_organ_segmentation_tpu.train import trainer as jtrainer
+    from multimodal_organ_segmentation_tpu.train.losses import get_loss, with_deep_supervision
+    from multimodal_organ_segmentation_tpu.train.optim import make_optimizer
+
+    if _AF_REF:
+        return _AF_REF
+    flax_mod, variables, _ = models["af"]
+    node = JConfig(_af_cfg(Path("."), "af", AF_LR0))
+    tx = make_optimizer(node)
+    step = jtrainer.make_train_step(flax_mod, tx, with_deep_supervision(get_loss(node)), 1)
+    mesh = jmake_mesh(None, jax.devices()[:2])
+    put = lambda x: jax.device_put(  # noqa: E731
+        x, NamedSharding(mesh, P(*([None, "data"] + [None] * (x.ndim - 2)))))
+    images, labels = _af_batch()
+    to_jnp = lambda tree: jax.tree_util.tree_map(jnp.asarray, tree)  # noqa: E731
+    for key, lr in (("slow", AF_LR0), ("fast", AF_LR)):
+        params = to_jnp(variables["params"])
+        state = jtrainer.TrainState(step=jnp.zeros((), jnp.int32), params=params,
+                                    opt_state=tx.init(params),
+                                    extra={"batch_stats": to_jnp(variables["batch_stats"])},
+                                    ema_params=None)
+        hyper = state.opt_state.hyperparams
+        hyper["learning_rate"] = hyper["learning_rate"] * 0 + lr
+        state = jax.device_put(state, NamedSharding(mesh, P()))  # as _jax_dp_steps
+        run = {"params": [], "metrics": []}
+        for i in range(len(images)):
+            state, m = step(state, put(jnp.asarray(images[i])), put(jnp.asarray(labels[i])),
+                            jax.random.key(i))
+            run["params"].append(jax.device_get(state.params))
+            run["metrics"].append({k: float(v) for k, v in m.items()})
+        run["extra"] = jax.device_get(state.extra)
+        _AF_REF[key] = run
+    first, second = (convert.params_from_jax("unet3d", p)[FACTORED]
+                     for p in _AF_REF["fast"]["params"])
+    assert float((second - first).abs().max()) > 10 * TP_WEIGHT_TOL
+    return _AF_REF
+
+
+@pytest.fixture(scope="module")
+def af_one_step1(tmp_path_factory, models):
+    """The one-process checkpoint (whole layout, factored moments) of the
+    first adafactor step at ``AF_LR``, which each spawn resumes."""
+    from multimodal_organ_segmentation_tpu_torch.train.checkpoint import save_checkpoint
+    from tests.torch_dist_worker import _steps, _trainer
+
+    root = tmp_path_factory.mktemp("af_one")
+    trainer = _trainer(_af_cfg(root, "af_one", AF_LR), models["af"][2], root, "af_one",
+                       mesh=False)
+    images, labels = _af_batch()
+    _steps(trainer, images[:1], labels[:1])
+    save_checkpoint(trainer.state.tree(), root / "step1", epoch=0)
+    return str(root / "step1")
+
+
+def _af_inputs(root, models, af_one_step1, **parallel) -> dict:
+    images, labels = _af_batch()
+    key = "af_tp" if "mesh" in parallel else "af_z1"
+    return {f"{key}_cfg": _af_cfg(root, key, AF_LR0, **parallel),
+            f"{key}_resume_cfg": _af_cfg(root, key, AF_LR, **parallel), "af_sd": models["af"][2],
+            "af_images": images, "af_labels": labels, "af_one_step1": af_one_step1}
+
+
+# the biases of the convs in front of a batch norm (``init_conv``'s and each
+# conv block's): their gradient is 0 but for rounding, which adafactor turns
+# into steps of about lr × the bias's rms either way (0.014 apart at AF_LR)
+NOISE_BIAS = re.compile(r".*\['Conv_\d+'\]\['bias'\]")
+
+
+def _check_unet_params(got, jparams, jstats, what, skip=None):
+    """The port's UNet3D weights and batch statistics ``got`` within the
+    weight tolerance of JAX's, but for the leaves whose path ``skip``
+    matches."""
+    back, stats = convert.params_to_jax("unet3d", got)
+    for tree, jtree in ((back, jparams), (stats, jstats)):
+        for (path, w), (_, g) in zip(jax.tree_util.tree_leaves_with_path(jtree),
+                                     jax.tree_util.tree_leaves_with_path(tree)):
+            name = jax.tree_util.keystr(path)
+            if skip is None or not skip.fullmatch(name):
+                np.testing.assert_allclose(g, np.asarray(w), rtol=0, atol=TP_WEIGHT_TOL,
+                                           err_msg=f"{what} {name}")
+
+
+def _check_adafactor(got, ref, kept, what):
+    """Two adafactor steps at ``AF_LR0`` held to JAX's (loss, ``grad_norm``,
+    every weight and batch statistic after them); the one-process
+    checkpoint of the first step at ``AF_LR`` resumed in this layout, its
+    second step held to JAX's at ``AF_LR`` (the same, but for the biases in
+    front of a batch norm); the 128-channel conv's factored moments as this
+    layout keeps them."""
+    slow, fast = ref["slow"], ref["fast"]
+    for m, j in zip(got["metrics"] + got["resumed"], slow["metrics"] + fast["metrics"][1:]):
+        assert abs(m["loss"] - j["loss"]) <= LOSS_TOL, (what, m, j)
+        assert abs(m["grad_norm"] - j["grad_norm"]) <= GNORM_RTOL * j["grad_norm"], (what, m, j)
+    _check_unet_params(got["params"], slow["params"][-1], slow["extra"]["batch_stats"],
+                       f"{what} params")
+    _check_unet_params(got["resumed_params"], fast["params"][-1], fast["extra"]["batch_stats"],
+                       f"{what} resumed", skip=NOISE_BIAS)
+    assert got["kept"][FACTORED] == kept, (what, got["kept"])
+
+
+def _de_cfg(**parallel):
+    """The tiny cross-attention DualEncoder (features 4-8-16, 8³ tiles) with
+    a token budget of 256, which a ring over 2 ranks doubles: level 0's 512
+    tokens attend."""
+    return {"experiment": {"seed": 0}, "data": {"modalities": ["CT", "PET"]},
+            "model": {"name": "dual_encoder", "in_channels": 2, "out_channels": 4,
+                      "backbone": {"features": [4, 8, 16], "img_size": [8, 8, 8]},
+                      "fusion": {"type": "cross_attention", "max_tokens": 256},
+                      "head": {"type": "conv", "dropout": 0.0}},
+            "parallel": parallel, "hardware": {"mixed_precision": "fp32"}}
+
+
+def _de_case(mesh):
+    """The DualEncoder's flax module with the ring over ``mesh``'s data axis,
+    its seeded weights, a batch of two 8³ tiles and their labels."""
+    dflax = jde.build_dual_encoder(JConfig(_de_cfg())).clone(sequence_axis="data", mesh=mesh)
+    x = np.random.default_rng(9).standard_normal((2, 8, 8, 8, 2)).astype(np.float32)
+    x[..., 1] = np.abs(x[..., 1]) * 2.0
+    dvars = seeded_variables(dflax, x, train=False, seed=10)
+    dy = np.random.default_rng(16).integers(0, 4, size=(2, 8, 8, 8)).astype(np.int64)
+    return dflax, dvars, x, dy
+
+
+def test_ring_attention_on_four_ranks(tmp_path, models, af_one_step1):
     """Four gloo ranks: the ring over all four; then the same group as a
     2 × 2 ``(data, model)`` grid with tensor parallelism, each check held to
     the JAX model with ``tp_axis=None`` on one device: the tiny
@@ -251,7 +420,24 @@ def test_ring_attention_on_four_ranks(tmp_path, models):
     resumed on the grid (the start of the step) and the step's gathered
     checkpoint resumed in one process, each giving the other side's logits
     within 1e-6 of the largest logit (f32: the row-parallel sums add their
-    halves in another order, a few ulps)."""
+    halves in another order, a few ulps). Then adafactor on the grid, ZeRO-1
+    over the data groups and tensor parallelism over the model groups (the
+    128-channel conv cut both ways): two steps at ``AF_LR0`` against JAX's
+    2-device mesh steps, loss 1e-4, ``grad_norm`` 1e-3 relative, weights
+    and batch statistics 1e-4; the one-process checkpoint of the first step
+    at ``AF_LR`` resumed on the grid, its second step the same against
+    JAX's at ``AF_LR`` (but for the biases in front of a batch norm); the
+    grid's checkpoint resumed in one process, its second step the same at
+    ``AF_LR0``. And the DualEncoder with ``sequence_axis: model``: its logits on a
+    batch every rank holds within 1e-4 of JAX's model ringing over the model
+    axis of a 2 × 2 mesh, and one data-parallel step (a row a data index,
+    the ring over each model group) within loss 1e-4 and ``grad_norm`` 1e-3
+    relative of JAX's step of the same function on one device (JAX's step
+    on that mesh gets the gradient wrong, see below). Last, ``--mode tune`` of the tensor-parallel UNet3D
+    on the grid, one candidate made to raise on rank 3 alone in the middle
+    of its forward: every rank returns the same table and pick, the failure
+    recorded on all four and the next candidate measured, and rank 0 alone
+    writes the profile."""
     from multimodal_organ_segmentation_tpu_torch.models.build import build_model
     from multimodal_organ_segmentation_tpu_torch.parallel.tensor_parallel import tp_plan
     from multimodal_organ_segmentation_tpu_torch.train.checkpoint import save_checkpoint
@@ -269,11 +455,26 @@ def test_ring_attention_on_four_ranks(tmp_path, models):
                         tmp_path / f"one_{name}_ckpt", epoch=0)
         inp.update({f"tp_{name}_cfg": tcfg, f"tp_{name}_sd": sd, f"tp_{name}_x": x,
                     f"tp_{name}_y": y, f"one_{name}_ckpt": str(tmp_path / f"one_{name}_ckpt")})
+    inp.update(_af_inputs(tmp_path, models, af_one_step1, mesh={"data": -1, "model": 2},
+                          zero1=True))
+    grid = JConfig({"parallel": {"mesh": {"data": -1, "model": 2}}})
+    dflax, dvars, dx, dy = _de_case(jmake_mesh(None, jax.devices()[:2]))
+    dcfg = _de_cfg(mesh={"data": -1, "model": 2}, sequence_axis="model")
+    dcfg["training"] = {"optimizer": {"name": "adamw", "lr": 1e-4}, "loss": {"name": "dice_ce"}}
+    inp.update(gde_cfg=dcfg, de_sd=convert.params_from_jax("dual_encoder", dvars["params"]),
+               de_x=dx, de_y=dy)
+    tune_cfg = {**_tp_cfg(_unet_cfg(tmp_path), "grid_tune"),
+                "tune": {"volume_shape": [24, 24, 24], "sw_batches": [1, 2], "overlaps": [0.5],
+                         "repeats": 1}}
+    tune_cfg["experiment"]["log_dir"] = str(tmp_path / "work" / "logs")
+    (tmp_path / "grid_tune.yaml").write_text(yaml.safe_dump(tune_cfg))
+    inp.update(grid_tune_config=str(tmp_path / "grid_tune.yaml"))
     procs = start("four", 4, tmp_path / "work", inp)
 
     ref = _ring_reference(inp, 4)
     jref = {}
-    for name, (flax_mod, variables, sd) in models.items():
+    for name in ("swin", "unet"):
+        flax_mod, variables, sd = models[name]
         x, y = inp[f"tp_{name}_x"], inp[f"tp_{name}_y"]
         cfg = {**inp[f"tp_{name}_cfg"], "parallel": {}}
         logits = np.asarray(jax.jit(lambda v, a: flax_mod.apply(v, a, train=False))(
@@ -286,6 +487,21 @@ def test_ring_attention_on_four_ranks(tmp_path, models):
         params, extra, metrics = jax_train_steps(flax_mod, cfg, variables, [x[None]],
                                                  [y[None].astype(np.int32)], 1)
         jref[name].update(params=params, extra=extra, metrics=metrics)
+    af_ref = _af_reference(models)
+    # the DualEncoder ringing over the model axis of JAX's 2 × 2 mesh: its
+    # logits; and JAX's step of the same function on one device (the doubled
+    # budget's levels, no ring). JAX's own step ringing over that model axis
+    # gets the gradient wrong (grad_norm 0.474 with the batch split over the
+    # data axis, 0.900 with it replicated, where the one-device step and the
+    # step ringing over the data axis of 2 devices read 0.395), so the port's
+    # step is held to the one-device step
+    gflax = dflax.clone(sequence_axis="model", mesh=jmake_mesh(grid, jax.devices()[:4]))
+    de_logits = np.asarray(jax.jit(lambda v, a: gflax.apply(v, a, train=False))(
+        dvars, jnp.asarray(dx)))
+    one_de = {**dcfg, "parallel": {}, "model": {
+        **dcfg["model"], "fusion": {**dcfg["model"]["fusion"], "max_tokens": 512}}}
+    _, _, (de_step,) = jax_train_steps(jde.build_dual_encoder(JConfig(one_de)), one_de, dvars,
+                                       [dx[None]], [dy[None].astype(np.int32)], 1)
     ranks = join(procs, tmp_path / "work")
 
     _check_ring(ranks, ref)
@@ -320,6 +536,44 @@ def test_ring_attention_on_four_ranks(tmp_path, models):
             # the one-process checkpoint resumed on the grid gives its logits
             scale = RESUME_TOL * np.abs(want["port_logits"]).max()
             np.testing.assert_allclose(got["logits"], want["port_logits"], rtol=0, atol=scale)
+    for r in ranks:
+        # the 128-channel conv [128, 128, 3, 3, 3] (input channels the larger
+        # axis between equals): v_row [128, 3, 3, 3] runs over its output
+        # channels (sliced by ZeRO-1 on the rank's shard [128, 64, 3, 3, 3]),
+        # v_col over its input channels (split over the model axis)
+        _check_adafactor(r["grid_adafactor"], af_ref,
+                         {"v_row": (64, 3, 3, 3), "v_col": (64, 3, 3, 3)}, "TP x ZeRO-1")
+        de = r["grid_dual_encoder"]
+        assert de["levels"] == [0, 1, 2]
+        assert de["rings"] == [("logits", "model"), ("step", "model")], de["rings"]
+        np.testing.assert_allclose(de["logits"], de_logits, rtol=0, atol=MODEL_TOL)
+        assert abs(de["step"]["loss"] - de_step["loss"]) <= LOSS_TOL, (de["step"], de_step)
+        assert abs(de["step"]["grad_norm"] - de_step["grad_norm"]) <= \
+            GNORM_RTOL * de_step["grad_norm"], (de["step"], de_step)
+    # --mode tune on the grid: one table, one pick, rank 3's failure on all four
+    reports = [r["grid_tune"]["reports"] for r in ranks]
+    assert len(reports[0]) == 1 and all(rep == reports[0] for rep in reports)
+    by_sw = {r["sw_batch"]: r for r in reports[0][0]["results"]}
+    assert by_sw[1]["error"] == "RuntimeError: CUDA out of memory (rank 3)", by_sw
+    assert by_sw[2]["vol_per_min"] > 0 and reports[0][0]["best"]["sw_batch"] == 2
+    # rank 3 raised at its second sum; the others stopped at the vote in front
+    # of their second or third
+    assert [r["grid_tune"]["sums"] for r in ranks][3] == 2, [r["grid_tune"]["sums"] for r in ranks]
+    profile = tmp_path / "work" / "grid_tune_config.yaml"
+    assert [r["grid_tune"]["writes"] for r in ranks] == [[str(profile)], [], [], []]
+    assert yaml.safe_load(profile.read_text())["inference"]["batch_size"] == 2
+    # the grid's first adafactor step (the whole layout) resumed in one process
+    from tests.torch_dist_worker import _steps, _trainer
+
+    one = _trainer(_af_cfg(tmp_path, "af_back", AF_LR0), models["af"][2], tmp_path, "af_back",
+                   mesh=False, resume_from=str(tmp_path / "work" / "af_tp_step1"))
+    images, labels = _af_batch()
+    (m,), j = _steps(one, images[1:], labels[1:]), af_ref["slow"]["metrics"][1]
+    assert abs(m["loss"] - j["loss"]) <= LOSS_TOL and \
+        abs(m["grad_norm"] - j["grad_norm"]) <= GNORM_RTOL * j["grad_norm"], (m, j)
+    _check_unet_params(one.model.state_dict(), af_ref["slow"]["params"][-1],
+                       af_ref["slow"]["extra"]["batch_stats"],
+                       "grid checkpoint resumed in one process")
     for name in ("swin", "unet"):
         # the grid's checkpoint (the whole layout, moments too) resumed in one process
         cfg = {**_tp_cfg(cases[name][0], f"one_{name}"), "parallel": {}}
@@ -337,7 +591,7 @@ def test_ring_attention_on_four_ranks(tmp_path, models):
                                        atol=RESUME_TOL * np.abs(after).max(), err_msg=name)
 
 
-def test_two_ranks_against_the_jax_mesh(tmp_path, models):
+def test_two_ranks_against_the_jax_mesh(tmp_path, models, af_one_step1):
     """One gloo group of two ranks: the ring, the tile-sharded sliding window
     and the runner's mesh, the DualEncoder's ring, data-parallel and ZeRO-1
     training with resume, dropout rows, the class-weighted cross entropy,
@@ -345,7 +599,14 @@ def test_two_ranks_against_the_jax_mesh(tmp_path, models):
     package on a 2-device mesh (or one process where the JAX package runs
     one). Then the multi-rank service: rank 0 answers over HTTP with the
     one-process service's mask, stats and the stop reach both ranks, and a
-    follower whose rank 0 falls silent raises at its receive's timeout."""
+    follower whose rank 0 falls silent raises at its receive's timeout.
+    Adafactor under ZeRO-1 (two steps at ``AF_LR0`` against JAX's 2-device
+    mesh steps; the one-process checkpoint of the first step at ``AF_LR``
+    resumed, its second step against JAX's at ``AF_LR``). ``--mode tune``
+    through the CLI on both ranks, one candidate made to raise on rank 1
+    alone: both ranks return the same table and pick, the failure recorded
+    on both with rank 1's error and the next candidate measured, and rank 0
+    alone writes the profile (a hang would end at the join's time limit)."""
     from multimodal_organ_segmentation_tpu_torch.serving.server import InferenceService
     from multimodal_organ_segmentation_tpu_torch.train.checkpoint import save_checkpoint
 
@@ -363,22 +624,11 @@ def test_two_ranks_against_the_jax_mesh(tmp_path, models):
     inp.update(swin_cfg=scfg, swin_sd=ssd, swin_volume=vol,
                swin_sw=sw, blend_w=blend_w)
     # the DualEncoder with sequence_axis "data": the JAX model on the mesh
-    dcfg = {"experiment": {"seed": 0}, "data": {"modalities": ["CT", "PET"]},
-            "model": {"name": "dual_encoder", "in_channels": 2, "out_channels": 4,
-                      "backbone": {"features": [4, 8, 16], "img_size": [8, 8, 8]},
-                      "fusion": {"type": "cross_attention", "max_tokens": 256},
-                      "head": {"type": "conv", "dropout": 0.0}},
-            "parallel": {"mesh": {"data": -1, "model": 1}, "sequence_axis": "data"},
-            "hardware": {"mixed_precision": "fp32"}}
-    dflax = jde.build_dual_encoder(JConfig({**dcfg, "parallel": {}})).clone(
-        sequence_axis="data", mesh=mesh)
-    x = np.random.default_rng(9).standard_normal((2, 8, 8, 8, 2)).astype(np.float32)
-    x[..., 1] = np.abs(x[..., 1]) * 2.0
-    dvars = seeded_variables(dflax, x, train=False, seed=10)
+    dcfg = _de_cfg(mesh={"data": -1, "model": 1}, sequence_axis="data")
+    dflax, dvars, x, dy = _de_case(mesh)
     dsd = convert.params_from_jax("dual_encoder", dvars["params"])
     dvol = np.random.default_rng(14).standard_normal((12, 12, 10, 2)).astype(np.float32)
     dsw = ((8, 8, 8), 4, 0.5, 3)  # 8 tiles, chunks of 3: 3 chunks padded to 4
-    dy = np.random.default_rng(16).integers(0, 4, size=(2, 8, 8, 8)).astype(np.int64)
     inp.update(de_cfg=dcfg, de_sd=dsd, de_x=x, de_y=dy, de_volume=dvol, de_sw=dsw)
     # data-parallel training of a batch-norm UNet3D, and a dropout model
     bcfg = _unet_cfg(root)
@@ -421,6 +671,14 @@ def test_two_ranks_against_the_jax_mesh(tmp_path, models):
                                            "log_dir": str(root / "work" / "logs")}}
     (root / "serve_cli.yaml").write_text(yaml.safe_dump(cli_cfg))
     inp.update(serve_cli_config=str(root / "serve_cli.yaml"), serve_cli_name="serve_cli")
+    # adafactor under ZeRO-1; --mode tune over chunks of 1 and 2 through the CLI
+    inp.update(_af_inputs(root, models, af_one_step1, zero1=True))
+    tune_cfg = {**icfg, "experiment": {**icfg["experiment"], "name": "tune",
+                                       "log_dir": str(root / "work" / "logs")},
+                "tune": {"volume_shape": [24, 24, 24], "sw_batches": [1, 2], "overlaps": [0.5],
+                         "repeats": 1}}
+    (root / "tune.yaml").write_text(yaml.safe_dump(tune_cfg))
+    inp.update(tune_config=str(root / "tune.yaml"))
     procs = start("main", 2, root / "work", inp)
 
     refs = {"ring": _ring_reference(inp, 2)}
@@ -444,6 +702,7 @@ def test_two_ranks_against_the_jax_mesh(tmp_path, models):
     one.model.load_state_dict(bsd)
     one.init_state()
     one.predict(root / "input", root / "pred_one")
+    af_ref = _af_reference(models)
     # one process: the DualEncoder with the doubled budget's levels and no ring
     one_model = {**dcfg["model"], "fusion": {"type": "cross_attention", "max_tokens": 512}}
     one = Trainer({**depcfg, "model": one_model, "parallel": {}}, device="cpu")
@@ -569,6 +828,21 @@ def test_two_ranks_against_the_jax_mesh(tmp_path, models):
     assert zero["stats"]["mesh"] == {"data": 2, "model": 1} and zero["stats"]["requests"] == 1
     assert "SIGTERM: draining" in zero["log"] and "final stats" in zero["log"]
     assert "stop after 1 passes" in one_rank["log"], one_rank["log"][-2000:]
+
+    # adafactor under ZeRO-1: the 128-channel conv's v_row (over its output
+    # channels, sliced) half a rank, v_col (over its input channels) whole
+    for r in ranks:
+        _check_adafactor(r["adafactor"], af_ref, {"v_row": (64, 3, 3, 3), "v_col": (128, 3, 3, 3)},
+                         "ZeRO-1")
+    # --mode tune on both ranks: one table, one pick, rank 1's failure on both
+    reports = [r["tune"]["reports"] for r in ranks]
+    assert len(reports[0]) == 1 and reports[0] == reports[1]
+    by_sw = {r["sw_batch"]: r for r in reports[0][0]["results"]}
+    assert by_sw[1]["error"] == "RuntimeError: CUDA out of memory (rank 1)", by_sw
+    assert by_sw[2]["vol_per_min"] > 0 and reports[0][0]["best"]["sw_batch"] == 2
+    profile = root / "work" / "tune_config.yaml"
+    assert [r["tune"]["writes"] for r in ranks] == [[str(profile)], []]
+    assert yaml.safe_load(profile.read_text())["inference"]["batch_size"] == 2
 
 
 def _torchrun(root, mode, *extra):

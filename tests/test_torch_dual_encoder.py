@@ -193,8 +193,10 @@ def test_dual_encoder_deep_supervision_outputs_in_training():
 def test_sequence_axis_is_dropped_on_one_device_and_refused_across_processes(monkeypatch):
     """One process drops the axis; across two ranks the ring doubles the
     token budget (with a budget of 2048, level 0's 4096 tokens then attend,
-    as the JAX builder's mesh makes them); a sequence axis other than data
-    (a model axis) is refused across processes."""
+    as the JAX builder's mesh makes them), over the data axis or, on a
+    ``data 1 × model 2`` grid, over the model axis, whose group the fusions
+    ring over (no longer refused: ``tests/test_torch_distributed.py`` holds
+    the model-axis ring to JAX's mesh model on a 2 × 2 grid)."""
     from multimodal_organ_segmentation_tpu_torch.parallel import mesh as tmesh
 
     cfg = _config()
@@ -209,8 +211,13 @@ def test_sequence_axis_is_dropped_on_one_device_and_refused_across_processes(mon
     assert model.mesh.shape == {"data": 2, "model": 1} and hasattr(model, "fusion_xattn0")
     assert model.fusion_xattn1.mesh is model.mesh
     cfg["parallel"] = {"mesh": {"data": 1, "model": 2}, "sequence_axis": "model"}
-    with pytest.raises(ValueError, match="data axis only"):
-        build_model(cfg, device="cpu")
+    # a 1 × 2 grid's groups without a process group: tokens standing for them
+    monkeypatch.setattr(tmesh, "_axis_groups",
+                        lambda devices: {"model": ["row 0"], "data": ["column 0", "column 1"]})
+    model = build_model(cfg, device="cpu")
+    assert model.mesh.shape == {"data": 1, "model": 2} and hasattr(model, "fusion_xattn0")
+    assert model.fusion_xattn0.sequence_axis == "model"
+    assert model.fusion_xattn0.mesh.group("model") == "row 0"
 
 
 def test_a_level_that_attends_needs_its_module():

@@ -9,6 +9,8 @@ at these rates, so the adamw-with-decay case states 2e-6). The schedules are
 pure Python copies and must agree exactly.
 """
 
+import threading
+
 import numpy as np
 import pytest
 import torch
@@ -161,6 +163,105 @@ def test_adafactor_factors_the_same_axes_in_torch_layout():
     out = _run_torch(_cfg("adafactor", 0.0, 0.0), {"k": params["f"][0].T},
                      [{"k": g["f"][0].T} for g in grads], lrs)
     np.testing.assert_allclose(out["k"].T, ref["k"], rtol=0, atol=TOL)
+
+
+class _ThreadGroup:
+    """Threads standing in for the ranks of a group: ``sum`` adds every
+    member's tensors in place, as an all_reduce would."""
+
+    def __init__(self, size):
+        self.barrier, self.slots = threading.Barrier(size, timeout=60), {}
+
+    def sum(self, tensors, rank):
+        self.slots[rank] = [t.clone() for t in tensors]
+        self.barrier.wait()
+        for i, t in enumerate(tensors):
+            t.copy_(sum(self.slots[r][i] for r in sorted(self.slots)))
+        self.barrier.wait()
+
+
+def _pieces_step(shape, cuts, init, grads, lrs):
+    """Each piece of a leaf cut by ``cuts`` ((dim, n) each, a grid of
+    threads) stepped by its own ``Adafactor`` whose groups are thread groups
+    (a group is ``(_ThreadGroup, the thread's rank in it)``, summed by the
+    caller's stand-in for ``optim.sum_over``); returns every piece's weights
+    and optimiser by grid position."""
+    coords = list(np.ndindex(*[n for _, n in cuts]))
+
+    def others(at, i):
+        return tuple(c for j, c in enumerate(at) if j != i)
+
+    groups = {(i, others(at, i)): _ThreadGroup(n) for i, (_, n) in enumerate(cuts)
+              for at in coords}
+    out = {}
+
+    def piece(t, at):
+        for (dim, n), c in zip(cuts, at):
+            t = t.chunk(n, dim)[c]
+        return t.contiguous()
+
+    def rank(at):
+        handles = [(groups[(i, others(at, i))], at[i]) for i in range(len(cuts))]
+        part = toptim.Part(shape, tuple((dim, h) for (dim, _), h in zip(cuts, handles)))
+        p = torch.nn.Parameter(piece(torch.from_numpy(init), at).clone())
+        opt = toptim.Adafactor([p], lr=lrs[0], weight_decay=1e-2, parts=[part])
+        for lr, g in zip(lrs, grads):
+            toptim.set_learning_rate(opt, lr)
+            p.grad = piece(torch.from_numpy(g), at)
+            opt.step()
+        out[at] = (p.detach(), opt.state[p])
+
+    threads = [threading.Thread(target=rank, args=(at,)) for at in coords]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert sorted(out) == coords, (shape, cuts)
+    return out
+
+
+def test_adafactor_of_a_leaf_in_pieces_equals_the_whole_leaf(monkeypatch):
+    """Leaves cut over ranks (threads here, whose group sums stand in for the
+    all_reduce of a ZeRO-1 data group or a tensor-parallel model group), each
+    piece stepped by an ``Adafactor`` told the whole shape and its cuts:
+    five steps give the whole leaf's weights, and each rank's moments are
+    its piece of the whole leaf's (``moment_dim``), for a leaf cut along its
+    largest axis (``v_row`` whole on each rank), its second largest
+    (``v_col`` whole), a third axis, an unfactored leaf, a leaf cut along
+    two axes over a 2 × 2 grid of groups, and one under the 1e-3 RMS floor,
+    weight decay on."""
+    monkeypatch.setattr(toptim, "sum_over", lambda ts, h: h[0].sum(ts, h[1]))
+    rng = np.random.default_rng(11)
+    cases = [((2, 130, 128), ((1, 2),)), ((2, 130, 128), ((2, 2),)), ((2, 130, 128), ((0, 2),)),
+             ((127, 300), ((1, 2),)), ((2, 130, 128), ((1, 2), (2, 2))), ((6, 4), ((0, 2),))]
+    lrs = [1e-2, 2e-2, 5e-3, 1e-2, 3e-2]
+    for shape, cuts in cases:
+        scale = 1e-4 if shape == (6, 4) else 1.0
+        init = (scale * rng.normal(size=shape)).astype(np.float32)
+        grads = [rng.normal(size=shape).astype(np.float32) for _ in lrs]
+        whole = torch.nn.Parameter(torch.from_numpy(init.copy()))
+        ref = toptim.Adafactor([whole], lr=lrs[0], weight_decay=1e-2)
+        for lr, g in zip(lrs, grads):
+            toptim.set_learning_rate(ref, lr)
+            whole.grad = torch.from_numpy(g)
+            ref.step()
+        out = _pieces_step(shape, cuts, init, grads, lrs)
+        for at, (p, state) in out.items():
+            want = whole.detach()
+            for (dim, n), c in zip(cuts, at):
+                want = want.chunk(n, dim)[c]
+            np.testing.assert_allclose(p.numpy(), want.numpy(), rtol=0, atol=TOL,
+                                       err_msg=f"{shape} {cuts} {at}")
+            for key, v in ref.state[whole].items():
+                if not isinstance(v, torch.Tensor):
+                    assert state[key] == v
+                    continue
+                for (dim, n), c in zip(cuts, at):
+                    d = toptim.moment_dim(key, v.dim(), shape, dim)
+                    v = v if d is None else v.chunk(n, d)[c]
+                np.testing.assert_allclose(state[key].numpy(), v.numpy(), rtol=1e-5, atol=0,
+                                           err_msg=f"{shape} {cuts} {at} {key}")
+        assert np.abs(whole.detach().numpy() - init).max() > 1e-3 * scale
 
 
 SCHEDULES = {

@@ -26,7 +26,7 @@ from multimodal_organ_segmentation_tpu_torch.data.dataloader import (
 from multimodal_organ_segmentation_tpu_torch.data.dataset import get_dataset
 from multimodal_organ_segmentation_tpu_torch.data.synthetic import generate_synthetic_dataset
 from multimodal_organ_segmentation_tpu_torch.models.build import build_model
-from multimodal_organ_segmentation_tpu_torch.parallel.mesh import make_mesh
+from multimodal_organ_segmentation_tpu_torch.parallel.mesh import Zero1Optimizer, make_mesh
 from multimodal_organ_segmentation_tpu_torch.train.checkpoint import (
     AsyncCheckpointWriter,
     CheckpointPolicy,
@@ -34,6 +34,7 @@ from multimodal_organ_segmentation_tpu_torch.train.checkpoint import (
     save_checkpoint,
 )
 from multimodal_organ_segmentation_tpu_torch.train.metrics import ConfusionMatrix, DiceMetric
+from multimodal_organ_segmentation_tpu_torch.train.optim import Adafactor
 from multimodal_organ_segmentation_tpu_torch.train.trainer import Trainer
 from multimodal_organ_segmentation_tpu_torch.utils.config import ConfigNode
 from multimodal_organ_segmentation_tpu_torch.utils.prng import KeyStream, set_seed
@@ -201,11 +202,11 @@ def test_freeze_for_inference_is_the_serving_model(full_run, data_root, tmp_path
 
 
 def test_later_slices_raise_by_name(data_root, tmp_path):
-    """What later slices bring raises by name: ZeRO-1 with adafactor's
-    factored moments. Meshes, ZeRO-1, tensor parallelism and multi-process
-    case shards now run (``tests/test_torch_distributed.py``): a
-    tensor-parallel mesh given to a trainer in one process builds the whole
-    model. TensorBoard, epoch
+    """What later slices brought runs: meshes, ZeRO-1 (adafactor too),
+    tensor parallelism and multi-process case shards
+    (``tests/test_torch_distributed.py``): a tensor-parallel mesh given to a
+    trainer in one process builds the whole model, and ZeRO-1 over
+    adafactor gives each slice's optimiser the whole leaf. TensorBoard, epoch
     profiles and reference-weight import now
     run (``test_tensorboard_and_profile_of_a_run``,
     ``test_torch_reference_checkpoint.py``); the evaluation slice's parts
@@ -215,11 +216,22 @@ def test_later_slices_raise_by_name(data_root, tmp_path):
     cfg = _config(data_root, tmp_path, "later")
     tp = Trainer(cfg, device="cpu", mesh=make_mesh({"parallel.mesh": {"model": 2}}, devices=[0, 1]))
     assert tp.mesh.shape == {"data": 1, "model": 2} and getattr(tp.model, "tp", None) is None
-    bad = _config(data_root, tmp_path, "later2")
-    bad.set("parallel.zero1", True)
-    bad.set("training.optimizer.name", "adafactor")
-    with pytest.raises(NotImplementedError, match="adafactor"):
-        Trainer(bad, device="cpu", mesh=make_mesh(devices=[0, 1])).init_state()
+    # ZeRO-1 with adafactor builds: each slice's Adafactor knows the whole
+    # leaf's shape and the data group's cut (two ranks stepping it against
+    # JAX's mesh: tests/test_torch_distributed.py)
+    z1 = _config(data_root, tmp_path, "later2")
+    z1.set("parallel.zero1", True)
+    z1.set("training.optimizer.name", "adafactor")
+    trainer = Trainer(z1, device="cpu", mesh=make_mesh(devices=[0, 1]))
+    trainer.init_state()
+    opt = trainer.state.optimizer
+    assert isinstance(opt, Zero1Optimizer) and isinstance(opt.inner.inner, Adafactor)
+    for p, shard, d, part in zip(opt.full, opt.shards, opt.dims, opt.parts):
+        assert part.shape == tuple(p.shape) and opt.inner.inner.parts[shard] is part
+        assert [dim for dim, _ in part.cuts] == ([] if d is None else [d])
+        if d is not None:
+            assert shard.shape[d] * 2 == p.shape[d]
+    assert sum(d is not None for d in opt.dims) >= 4
     # dice_native needs native validation, as in the JAX trainer
     bad = _config(data_root, tmp_path, "later5", checkpoint={"monitor": "dice_native"})
     with pytest.raises(ValueError, match="native_val_every"):

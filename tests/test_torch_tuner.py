@@ -5,7 +5,9 @@ a 24³ volume. The report and the written profile keep the JAX tuner's keys,
 and ``write_profile`` writes the JAX package's bytes for the same report.
 One difference is pinned: when every parity-tier candidate (overlap ≥ 0.25)
 was tried and failed, the port picks none, where the JAX tuner
-(``serving/tuner.py:166-168``) falls back to a turbo candidate.
+(``serving/tuner.py:166-168``) falls back to a turbo candidate. Under
+``torchrun`` (two ranks: ``tests/test_torch_distributed.py``) the ranks time
+the multi-rank pass together and agree on each candidate.
 """
 
 import json
@@ -141,12 +143,23 @@ def test_tune_mode_through_the_cli(tune_cfg, tmp_path):
     assert sidecar[0]["vol_per_min"] > 0
 
 
-def test_tune_runs_as_one_process(tune_cfg, monkeypatch):
-    """In a job of several ranks the tuner raises and says why, before it
-    builds anything: a candidate that fails on one rank would leave the
-    others waiting in its collectives."""
-    from multimodal_organ_segmentation_tpu_torch.parallel import mesh as tmesh
+def test_tune_runs_as_one_process(tune_cfg, monkeypatch, tmp_path):
+    """The tuner in a process group of one rank (gloo): the multi-rank path
+    runs, each candidate's outcome settled by the ranks' votes
+    (``parallel.mesh.agreement``); a failed candidate is recorded with its
+    rank and the sweep goes on. Two ranks, one of them failing alone, run in
+    ``tests/test_torch_distributed.py``."""
+    import torch.distributed as dist
 
-    monkeypatch.setattr(tmesh, "world", lambda: (0, 2))
-    with pytest.raises(RuntimeError, match="runs as one process"):
-        tuner.tune_serving(tune_cfg, device="cpu")
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'rendezvous'}", rank=0,
+                            world_size=1)
+    try:
+        _runner_patch(monkeypatch, fail=2)
+        tune_cfg.set("tune.overlaps", [0.5])
+        report = tuner.tune_serving(tune_cfg, device="cpu")
+    finally:
+        dist.destroy_process_group()
+    by_sw = {r["sw_batch"]: r for r in report["results"]}
+    assert by_sw[2]["error"] == "RuntimeError: CUDA out of memory (rank 0)"
+    assert set(by_sw[1]) == KEYS and by_sw[1]["vol_per_min"] > 0
+    assert report["best"]["sw_batch"] == 1

@@ -1,6 +1,7 @@
 """One rank of the gloo process groups that ``tests/test_torch_distributed.py``
 spawns: two ranks (``main``) or four (``four``, a 2 × 2 ``(data, model)``
-grid for the tensor-parallel checks).
+grid for the tensor-parallel checks, adafactor split two ways, the
+DualEncoder's ring over the model axis and ``--mode tune``).
 
     python -m tests.torch_dist_worker TASK RANK WORLD RENDEZVOUS_FILE WORK_DIR
 
@@ -143,11 +144,11 @@ def dual_encoder(inp, work):
 
 
 def _trainer(cfg, sd, work, name, **kw):
-    from multimodal_organ_segmentation_tpu_torch.train.trainer import Trainer
+    from multimodal_organ_segmentation_tpu_torch.train.trainer import Trainer, local_state
 
     cfg = {**cfg, "experiment": {**cfg["experiment"], "name": name, "output_dir": str(work)}}
     trainer = Trainer(cfg, device="cpu", **kw)
-    trainer.model.load_state_dict(sd)
+    trainer.model.load_state_dict(local_state(trainer.model, sd))  # a TP model: its shard
     trainer.init_state()
     return trainer
 
@@ -217,6 +218,106 @@ def train(inp, work):
     weighted = _trainer(inp["weighted_cfg"], sd, work, "weighted")
     out["weighted"] = _steps(weighted, images[:1], inp["weighted_labels"])
     return out
+
+
+def _state(trainer):
+    return {k: v.detach().clone() for k, v in trainer.model.state_dict().items()}
+
+
+def adafactor(inp, work, name="af_z1"):
+    """Adafactor on this group's mesh (``inp["af_cfg"]`` with
+    ``parallel.zero1``; on the 2 × 2 grid tensor parallelism too): two steps
+    of the batch-norm UNet3D whose 128-channel block has factored moments,
+    from the seeded weights; the whole-layout checkpoint after the first;
+    each slice's moment shapes; and the one-process checkpoint of the first
+    step resumed here (``inp["af_..._resume_cfg"]``, at its learning rate),
+    its second step."""
+    from multimodal_organ_segmentation_tpu_torch.train.checkpoint import save_checkpoint
+
+    cfg, sd = inp[f"{name}_cfg"], inp["af_sd"]
+    images, labels = inp["af_images"], inp["af_labels"]
+    trainer = _trainer(cfg, sd, work, name)
+    metrics = _steps(trainer, images[:1], labels[:1])
+    save_checkpoint(trainer.state.tree(), work / f"{name}_step1", epoch=0)
+    metrics += _steps(trainer, images[1:], labels[1:])
+    opt = trainer.state.optimizer
+    kept = {n: {k: tuple(v.shape) for k, v in opt.inner.inner.state[s].items()
+                if isinstance(v, torch.Tensor)}
+            for (n, _), s in zip(trainer.model.named_parameters(), opt.shards)}
+    tree = trainer.state.tree()
+    resumed = _trainer(inp[f"{name}_resume_cfg"], sd, work, f"{name}_r",
+                       resume_from=inp["af_one_step1"])
+    return {"metrics": metrics, "params": {k: v.clone() for k, v in tree["params"].items()},
+            "kept": kept, "resumed": _steps(resumed, images[1:], labels[1:]),
+            "resumed_params": {k: v.clone() for k, v in resumed.state.tree()["params"].items()}}
+
+
+def _tune_cli(inp, work, key):
+    """``--mode tune`` through ``cli.main`` on every rank (the CLI joins the
+    group) with the config ``inp[key]``: each rank's report (recorded from
+    ``tune_serving``) and its ``write_profile`` calls."""
+    from multimodal_organ_segmentation_tpu_torch import cli
+    from multimodal_organ_segmentation_tpu_torch.serving import tuner
+
+    reports, writes = [], []
+    tune_serving, write_profile = tuner.tune_serving, tuner.write_profile
+    tuner.tune_serving = lambda *a, **k: reports.append(tune_serving(*a, **k)) or reports[-1]
+    tuner.write_profile = lambda *a, **k: writes.append(a[1]) or write_profile(*a, **k)
+    try:
+        cli.main(["--mode", "tune", "--config", inp[key], "--device", "cpu",
+                  "--output", str(work / f"{key}.yaml")])
+    finally:
+        tuner.tune_serving, tuner.write_profile = tune_serving, write_profile
+    return {"reports": reports, "writes": [str(w) for w in writes]}
+
+
+def tune(inp, work):
+    """``--mode tune`` on both ranks over chunk sizes 1 and 2, the chunk of 1
+    made to raise on rank 1 alone before its pass."""
+    from multimodal_organ_segmentation_tpu_torch.ops import sliding_window as tsw
+
+    call = tsw.SlidingWindowRunner.__call__
+
+    def failing(self, volume, params=None):
+        if dist.get_rank() == 1 and self.sw_batch_size == 1:
+            raise RuntimeError("CUDA out of memory")
+        return call(self, volume, params)
+
+    tsw.SlidingWindowRunner.__call__ = failing
+    try:
+        return _tune_cli(inp, work, "tune_config")
+    finally:
+        tsw.SlidingWindowRunner.__call__ = call
+
+
+def grid_tune(inp, work):
+    """``--mode tune`` on the 2 × 2 grid (the tensor-parallel UNet3D, tile
+    chunks over the data axis) over chunk sizes 1 and 2, the chunk of 1 made
+    to raise on rank 3 alone in the middle of its forward, at its second
+    row-parallel sum (its model group's other rank waits in front of that
+    sum); how many sums each rank began in that candidate."""
+    from multimodal_organ_segmentation_tpu_torch.ops import sliding_window as tsw
+    from multimodal_organ_segmentation_tpu_torch.parallel import tensor_parallel as tp
+
+    call, summed = tsw.SlidingWindowRunner.__call__, tp._summed
+    current, sums = {}, [0]
+
+    def tracking(self, volume, params=None):
+        current["sw"] = self.sw_batch_size
+        return call(self, volume, params)
+
+    def failing(x, group):
+        if current.get("sw") == 1:
+            sums[0] += 1
+            if dist.get_rank() == 3 and sums[0] == 2:
+                raise RuntimeError("CUDA out of memory")
+        return summed(x, group)
+
+    tsw.SlidingWindowRunner.__call__, tp._summed = tracking, failing
+    try:
+        return {**_tune_cli(inp, work, "grid_tune_config"), "sums": sums[0]}
+    finally:
+        tsw.SlidingWindowRunner.__call__, tp._summed = call, summed
 
 
 def serve(inp, work):
@@ -376,6 +477,51 @@ def tensor_parallel(inp, work):
     return out
 
 
+def grid_adafactor(inp, work):
+    """``adafactor`` on the 2 × 2 grid: ZeRO-1 over the data groups and
+    tensor parallelism over the model groups, one leaf cut by both."""
+    return adafactor(inp, work, "af_tp")
+
+
+def grid_dual_encoder(inp, work):
+    """The DualEncoder with ``sequence_axis: model`` on the 2 × 2 grid: its
+    logits on a batch every rank holds (the ring over the model group), and
+    one data-parallel step, each data index its row of the batch, the ring
+    over the model group under ``rows``; which calls went through the ring."""
+    from multimodal_organ_segmentation_tpu_torch.models.build import build_model
+    from multimodal_organ_segmentation_tpu_torch.parallel import ring_attention as ra
+    from multimodal_organ_segmentation_tpu_torch.parallel.mesh import make_mesh, same_input
+    from multimodal_organ_segmentation_tpu_torch.train.losses import get_loss
+    from multimodal_organ_segmentation_tpu_torch.train.optim import make_optimizer
+    from multimodal_organ_segmentation_tpu_torch.train.trainer import TrainState, make_train_step
+    from multimodal_organ_segmentation_tpu_torch.utils.config import ConfigNode
+
+    rings, phase = [], "logits"
+    ring = ra.ring_attention
+    ra.ring_attention = lambda *a, **k: rings.append((phase, a[4])) or ring(*a, **k)
+    try:
+        cfg = ConfigNode(inp["gde_cfg"])
+        model = build_model(cfg, device="cpu")
+        model.load_state_dict(inp["de_sd"])
+        x, y = _t(inp["de_x"]), torch.from_numpy(inp["de_y"]).long()
+        with torch.no_grad(), same_input():
+            logits = model(x)
+        phase = "step"
+        m = build_model(cfg, device="cpu", train=True)
+        m.load_state_dict(inp["de_sd"])
+        opt = make_optimizer(cfg, m.parameters())
+        mesh = make_mesh(cfg)
+        r = mesh.axis_rank("data")
+        fn = make_train_step(m, opt, get_loss(cfg), 1, mesh=mesh)
+        _, metrics = fn(TrainState(step=0, model=m, optimizer=opt), x[None, r:r + 1],
+                        y[None, r:r + 1], rows=(r, 1, 2))
+    finally:
+        ra.ring_attention = ring
+    return {"logits": logits.numpy(), "rings": sorted(set(rings)),
+            "levels": [lv for lv in range(4) if hasattr(model, f"fusion_xattn{lv}")],
+            "step": {k: float(v) for k, v in metrics.items()}}
+
+
 def inference(inp, work):
     """``case_shard: auto`` predict (each rank its cases) and native eval
     (merged over the ranks) of the batch-norm UNet3D."""
@@ -399,8 +545,9 @@ def inference(inp, work):
     return {"written": written, "metrics": metrics}
 
 
-TASKS = {"four": [ring, tensor_parallel],
-         "main": [ring, sliding_window, dual_encoder, train, inference, serve, serve_cli]}
+TASKS = {"four": [ring, tensor_parallel, grid_adafactor, grid_dual_encoder, grid_tune],
+         "main": [ring, sliding_window, dual_encoder, train, adafactor, inference, serve, serve_cli,
+                  tune]}
 
 
 def main(argv) -> None:

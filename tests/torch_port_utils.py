@@ -83,10 +83,12 @@ def _one_thread():
     torch.set_num_threads(n)
 
 
-def jax_train_steps(flax_mod, cfg: dict, variables, images, labels, accum: int):
+def jax_train_steps(flax_mod, cfg: dict, variables, images, labels, accum: int, place=None):
     """The JAX trainer's ``make_train_step`` over ``len(images)`` steps from
     ``variables`` (params, and batch_stats as ``state.extra``), with key i at
-    step i. Returns (params, extra, per-step metrics) as numpy / floats."""
+    step i; ``place(state)``, where given, places the first state (as the
+    step's outputs lie on a mesh, so that later steps reuse the first
+    compile). Returns (params, extra, per-step metrics) as numpy / floats."""
     import jax.numpy as jnp
 
     from multimodal_organ_segmentation_tpu.train import trainer as jtrainer
@@ -101,6 +103,7 @@ def jax_train_steps(flax_mod, cfg: dict, variables, images, labels, accum: int):
     extra = {k: to_jnp(v) for k, v in variables.items() if k != "params"}
     state = jtrainer.TrainState(step=jnp.zeros((), jnp.int32), params=params,
                                 opt_state=tx.init(params), extra=extra, ema_params=None)
+    state = place(state) if place is not None else state
     step = jtrainer.make_train_step(flax_mod, tx, with_deep_supervision(get_loss(node)), accum)
     metrics = []
     for i in range(len(images)):
