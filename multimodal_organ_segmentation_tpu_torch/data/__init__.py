@@ -1,2 +1,2 @@
-"""Data layer of the port: CSV-driven dataset, synthetic data and the host
-loader (the JAX package's ``data/``; the transform graph is not ported yet)."""
+"""Data layer of the port: CSV-driven dataset, synthetic data, the host
+loader and the transform graph (the JAX package's ``data/``)."""

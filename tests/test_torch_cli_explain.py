@@ -20,10 +20,12 @@ from tests.torch_port_utils import _one_thread, seeded_variables  # noqa: F401
 
 
 def _explain_world(root):
-    """A DualEncoder (attention fusion, which sows its modality weights) with
-    seeded weights as a port checkpoint and as the JAX package's own, three
-    CT+PET cases of other shapes than its 8³ tile, and a config with every
-    tool on, on native grids."""
+    """A DualEncoder of two levels (attention fusion, which sows its
+    modality weights) with seeded weights as a port checkpoint and as the
+    JAX package's own, three CT+PET cases of other shapes than its 8³ tile,
+    and a config with every tool on, on native grids. The JAX CLI compiles
+    the model's init (a threefry draw per parameter) and each tool afresh
+    for every case, so the model is as small as keeps every tool's path."""
     from multimodal_organ_segmentation_tpu.models import build as jbuild
     from multimodal_organ_segmentation_tpu.train.checkpoint import save_checkpoint as jsave
     from multimodal_organ_segmentation_tpu.train.optim import make_optimizer
@@ -33,7 +35,7 @@ def _explain_world(root):
         "experiment": {"name": "explain", "seed": 0, "log_dir": str(root / "logs")},
         "data": {"modalities": ["CT", "PET"]},
         "model": {"name": "dual_encoder", "out_channels": 3,
-                  "backbone": {"features": [4, 8, 8], "img_size": [8, 8, 8]},
+                  "backbone": {"features": [4, 8], "img_size": [8, 8, 8]},
                   "fusion": {"type": "attention"}},
         "inference": {"sliding_window": {"overlap": 0.5}, "batch_size": 2},
         "explainability": {"native_grid": True, "gradcam": {"enabled": True},
@@ -49,7 +51,8 @@ def _explain_world(root):
                                  seed=12)
     params = jax.tree_util.tree_map(jnp.asarray, variables["params"])
     jsave(TrainState(step=jnp.zeros((), jnp.int32), params=params,
-                     opt_state=make_optimizer(jcfg).init(params), extra={}), root / "jckpt")
+                     opt_state=jax.jit(make_optimizer(jcfg).init)(params), extra={}),
+          root / "jckpt")
     save_checkpoint({"step": 0, "params": convert.params_from_jax("dual_encoder", variables),
                      "opt_state": None, "ema_params": None}, root / "ckpt")
     rng = np.random.default_rng(13)
@@ -79,7 +82,7 @@ def test_explain_mode_matches_the_jax_cli(tmp_path):
     assert files == _files(tmp_path / "jax")
     assert "tsne.png" in files and "c1_attention" in files
     maps = [f for f in files if f.endswith(".nii.gz")]
-    assert len(maps) == 9  # per case: GradCAM on fused2, IG of CT and of PET
+    assert len(maps) == 9  # per case: GradCAM on fused1, IG of CT and of PET
     for name in maps:
         got, want = load_nifti(tmp_path / "port" / name), load_nifti(tmp_path / "jax" / name)
         assert got.shape == want.shape, name

@@ -300,7 +300,7 @@ def _af_reference(models) -> dict:
     for key, lr in (("slow", AF_LR0), ("fast", AF_LR)):
         params = to_jnp(variables["params"])
         state = jtrainer.TrainState(step=jnp.zeros((), jnp.int32), params=params,
-                                    opt_state=tx.init(params),
+                                    opt_state=jax.jit(tx.init)(params),
                                     extra={"batch_stats": to_jnp(variables["batch_stats"])},
                                     ema_params=None)
         hyper = state.opt_state.hyperparams

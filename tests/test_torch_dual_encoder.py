@@ -159,7 +159,10 @@ def _pair(cfg, seed, train=False):
     flax_mod = jde.build_dual_encoder(JConfigNode(cfg))
     assert flax_mod.mesh is None
     variables = seeded_variables(flax_mod, x, train=False, seed=seed + 1)
-    ref = jax.jit(lambda v, x: flax_mod.apply(v, x, train=train))(variables, x)
+    # op by op: the nine DualEncoders here share most primitives (the
+    # encoders' convolutions and norms), each compiled once for the module,
+    # where a jitted forward compiles every model whole
+    ref = flax_mod.apply(variables, x, train=train)
     model = build_model(cfg, device="cpu", train=train)
     model.load_state_dict(convert.params_from_jax("dual_encoder", variables))
     with torch.no_grad():

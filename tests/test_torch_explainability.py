@@ -120,21 +120,33 @@ def pair(family):
 
 
 class JittedApply:
-    """A flax model whose ``apply`` runs as one jitted program per set of
-    keyword arguments. The JAX tools call ``apply`` eagerly in places (the
-    capture forwards), and run op by op the first such call compiles every
-    primitive on its own: 16 s for the SwinUNETR. Jitted, it is the same
-    function, compiled once."""
+    """A flax model whose ``apply`` runs jitted. The JAX tools call ``apply``
+    eagerly in places, and run op by op the first such call compiles every
+    primitive on its own: 16 s for the SwinUNETR. Their three eager forwards
+    (GradCAM's ``capture=True``, the attention capture's
+    ``mutable=["intermediates"]`` and the t-SNE features') are one forward
+    that returns both, compiled once per family and bit for bit the forward
+    each asks for; any other call, and any call inside a trace, is one
+    jitted program per set of keyword arguments."""
+
+    _EAGER = ({"train": False, "capture": True}, {"train": False, "mutable": ["intermediates"]})
 
     def __init__(self, module):
         self.module = module
         self._fns = {}
 
     def apply(self, variables, *args, **kwargs):
+        if kwargs in self._EAGER and not any(isinstance(a, jax.core.Tracer) for a in args):
+            (logits, feats), state = self._jitted(train=False, capture=True,
+                                                  mutable=["intermediates"])(variables, *args)
+            return (logits, feats) if "capture" in kwargs else (logits, state)
+        return self._jitted(**kwargs)(variables, *args)
+
+    def _jitted(self, **kwargs):
         key = repr(sorted(kwargs.items()))
         if key not in self._fns:
             self._fns[key] = jax.jit(partial(self.module.apply, **kwargs))
-        return self._fns[key](variables, *args)
+        return self._fns[key]
 
     def __getattr__(self, name):
         return getattr(self.module, name)
@@ -374,7 +386,11 @@ def test_tsne_features_match_jax(family):
     rng = np.random.default_rng(9)
     samples = [{"image": rng.normal(size=(*tile, 2)).astype(np.float32),
                 "label": rng.integers(0, 3, tile)} for _ in range(3)]
-    ref = jexp.TSNEVisualizer(flax_model, variables).collect(samples)
+    ref = jexp.TSNEVisualizer(flax_model, variables)
+    # its own ``jax.jit`` of the features would compile the forward again:
+    # unjitted, the pooling runs around the family's one capture forward
+    ref._extract = ref._pooled_features
+    ref = ref.collect(samples)
     out = TSNEVisualizer(model).collect(samples)
     np.testing.assert_array_equal(out["labels"], ref["labels"])
     np.testing.assert_allclose(out["features"], ref["features"], atol=TOL)

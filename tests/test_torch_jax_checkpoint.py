@@ -74,7 +74,7 @@ def _jax_state(flax_mod, cfg, variables, ema=False):
     extra = {k: jax.tree_util.tree_map(jnp.asarray, v) for k, v in variables.items()
              if k != "params"}
     return tx, jtrainer.TrainState(step=jnp.zeros((), jnp.int32), params=params,
-                                   opt_state=tx.init(params), extra=extra,
+                                   opt_state=jax.jit(tx.init)(params), extra=extra,
                                    ema_params=jax.tree_util.tree_map(jnp.array, params) if ema
                                    else None)
 

@@ -144,7 +144,8 @@ def jax_run(init_variables):
     tx = jmake_optimizer(cfg)
     params = jax.tree_util.tree_map(jnp.asarray, init_variables["params"])
     state = jtrainer.TrainState(step=jnp.zeros((), jnp.int32), params=params,
-                                opt_state=tx.init(params), extra={}, ema_params=None)
+                                opt_state=jax.jit(tx.init)(params), extra={},
+                                ema_params=None)
     step = jtrainer.make_train_step(flax_mod, tx, jwith_ds(jget_loss(cfg)), ACCUM)
     images, labels = _batches()
     out = []

@@ -102,7 +102,8 @@ def jax_train_steps(flax_mod, cfg: dict, variables, images, labels, accum: int, 
     params = to_jnp(variables["params"])
     extra = {k: to_jnp(v) for k, v in variables.items() if k != "params"}
     state = jtrainer.TrainState(step=jnp.zeros((), jnp.int32), params=params,
-                                opt_state=tx.init(params), extra=extra, ema_params=None)
+                                opt_state=jax.jit(tx.init)(params), extra=extra,
+                                ema_params=None)
     state = place(state) if place is not None else state
     step = jtrainer.make_train_step(flax_mod, tx, with_deep_supervision(get_loss(node)), accum)
     metrics = []
