@@ -14,9 +14,39 @@
 // bounds it, 0.036 ms a chunk at 989 TFLOP/s; the bytes take 0.011 ms and
 // the Nq*Nk exponentials 0.03 ms on the special-function units.
 //
-// Two routes, chosen by the wrapper (ops/flash_attention.py::plan):
+// Three routes, chosen by the wrapper (ops/flash_attention.py::plan):
 //
-// mma (bf16, D a multiple of 16 up to 128): FlashAttention-2 on mma.sync
+// wgmma (bf16, D a multiple of 16 up to 128, from 2^20 query-key pairs):
+//  FlashAttention-3-shaped, on Hopper's warpgroup products fed by TMA:
+//  * one block of 384 threads owns 128 query rows of one (batch, head):
+//    two consumer warpgroups of 64 rows and one producer warpgroup, which
+//    gives its registers to the consumers (setmaxnreg 40 / 232);
+//  * one producer thread loads the Q tile once by TMA, then streams K and
+//    V tiles of 128 keys into a ring of 3 stages under full / empty
+//    mbarriers. Every tile lands as [D/8][rows][8] (one box per 8-dim
+//    group), the no-swizzle core-matrix layout that wgmma reads: K-major
+//    for Q and K, MN-major (imm-trans-b) for V's [key][dim] rows as they
+//    are. Keys past Nk arrive as zero rows (the tensor map's bounds) and
+//    take -inf scores;
+//  * S = Q.K^T is D/16 wgmma m64n128k16 from shared memory; the online
+//    softmax runs on the accumulators in the log2 domain with the plain
+//    version's running-max guard; P is rounded to bf16 in registers and is
+//    the A operand (from registers) of O += P.V, eight m64nDk16; O is
+//    normalised once at the end;
+//  * up to D = 64, where the exponentials weigh most, the softmax overlaps
+//    products twice over: a warpgroup issues tile j's S with tile j-1's
+//    P.V and runs tile j's softmax while that P.V is in flight, and the two
+//    warpgroups take turns on named barriers to issue their products
+//    (FlashAttention-3's ping-pong). At D = 96 and 128 the products weigh
+//    most: there both measured slower on the H100 than the plain order (S,
+//    softmax, P.V), which the head dims from 80 take
+//    (scripts/attention_variants.py). The overlap also needs a thread's S,
+//    P and O at once: at D = 96 and 128 that overflowed the 168 registers
+//    ptxas gives a thread of this block, and it serialized every wgmma.
+//
+// mma (bf16 below 2^20 query-key pairs, where a call is a few microseconds
+//  and the wgmma route's 128-row blocks are too few; and the route the
+//  wgmma one replaced): FlashAttention-2 on mma.sync
 //  m16n8k16 tensor-core tiles, so the products run at the tensor-core rate
 //  and not on the f32 pipes:
 //  * one block of 4 warps owns 64 query rows of one (batch, head); each warp
@@ -54,9 +84,284 @@
 //    loop reads the 8 rows of one key as two float4 broadcasts.
 #include "common.cuh"
 #include "mma.cuh"
+#include "wgmma.cuh"
 
 namespace organseg {
 namespace {
+
+// ---- wgmma route -------------------------------------------------------
+
+constexpr int kWgRows = 128;              // query rows a block: two consumer warpgroups of 64
+constexpr int kWgStages = 3;              // K/V tiles in flight
+constexpr int kWgConsumerWarps = 8;
+constexpr int kWgThreads = 384;           // + the producer warpgroup
+constexpr int kWgBars = 8 * (1 + 2 * kWgStages);
+
+constexpr int kWgKeys = 128;              // keys a K/V tile (the n of S = Q.K^T)
+// Head dims up to which the consumers overlap their softmax with products
+// (the softmax-bound schedule, below); from 80 they take the plain one.
+constexpr int kWgOverlapMaxD = 64;
+
+constexpr int wgmma_smem_bytes(int d) {
+  // Q [d/8][128][8], then the ring of K and V tiles [d/8][keys][8] each,
+  // then the barriers; 128 bytes of slack to align the base
+  return kWgRows * d * 2 + kWgStages * 2 * kWgKeys * d * 2 + kWgBars + 128;
+}
+
+template <int D>
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
+                       const __grid_constant__ CUtensorMap kmap,
+                       const __grid_constant__ CUtensorMap vmap, __nv_bfloat16* __restrict__ out,
+                       int nq, int nk, int heads, float scale_log2) {
+  constexpr int G = D / 8;                       // 8-dim groups: the TMA boxes of a tile
+  constexpr int KEYS = kWgKeys;
+  constexpr int NS = KEYS / 2;                   // a thread's scores of a tile
+  constexpr int KS = KEYS / 16;                  // k16 steps of P.V
+  constexpr int kQBytes = kWgRows * D * 2;
+  constexpr int kTileBytes = KEYS * D * 2;    // one K or V tile
+  constexpr int kStageBytes = 2 * kTileBytes;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t qs = (smem_u32(smem_raw) + 127u) & ~127u;
+  const uint32_t ring = qs + kQBytes;
+  const uint32_t bars = ring + kWgStages * kStageBytes;
+  const uint32_t qbar = bars;
+  auto full = [&](int s) { return bars + 8u * (1 + s); };
+  auto empty = [&](int s) { return bars + 8u * (1 + kWgStages + s); };
+
+  const int q0 = blockIdx.x * kWgRows;
+  const int b = blockIdx.y / heads;
+  const int h = blockIdx.y - b * heads;
+  const int tiles = (nk + KEYS - 1) / KEYS;
+  // the warp index through a shuffle: provably warp-uniform, so ptxas does
+  // not treat the wgmma path as divergent (which would serialize the wgmmas)
+  const int warp = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x >> 5), 0);
+  const int lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    mbar_init(qbar, 1);
+    for (int s = 0; s < kWgStages; ++s) {
+      mbar_init(full(s), 1);                  // the producer's arrive + the copies' bytes
+      mbar_init(empty(s), kWgConsumerWarps);  // one arrive per consumer warp
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp >= kWgConsumerWarps) {
+    // producer warpgroup: one thread loads Q once, then streams K and V
+    setmaxnreg_dec<40>();
+    if (warp == kWgConsumerWarps && lane == 0) {
+      mbar_arrive_expect_tx(qbar, kQBytes);
+      for (int g = 0; g < G; ++g) tma_load_4d(qs + g * kWgRows * 16, &qmap, qbar, 8 * g, h, q0, b);
+      for (int j = 0; j < tiles; ++j) {
+        const int s = j % kWgStages;
+        mbar_wait(empty(s), ((j / kWgStages) & 1) ^ 1);
+        const uint32_t st = ring + s * kStageBytes;
+        mbar_arrive_expect_tx(full(s), kStageBytes);
+        for (int g = 0; g < G; ++g) {
+          tma_load_4d(st + g * KEYS * 16, &kmap, full(s), 8 * g, h, j * KEYS, b);
+          tma_load_4d(st + kTileBytes + g * KEYS * 16, &vmap, full(s), 8 * g, h, j * KEYS, b);
+        }
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns query rows q0 + 64 wg .. + 63
+  setmaxnreg_inc<232>();
+  const int wg = warp >> 2;
+  const int t2 = 2 * (lane & 3);
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  uint32_t pa[KS][4];  // P of the previous tile, the A operand of its P.V
+
+  // S = Q.K^T of tile j: D/16 k-steps of m64nKEYSk16 from stage s; Q and K
+  // are K-major [d/8][rows][8] (LBO: the next 8-dim group, SBO: the next
+  // 8 rows)
+  auto issue_s = [&](float (&sc)[NS], int s) {
+    const uint32_t ks = ring + s * kStageBytes;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss<KEYS>(sc, wgmma_desc(qs + (2 * kk * kWgRows + 64 * wg) * 16, kWgRows * 16, 128),
+                    wgmma_desc(ks + 2 * kk * KEYS * 16, KEYS * 16, 128), kk > 0 ? 1u : 0u);
+    wgmma_commit();
+  };
+  // O += P.V of the tile in stage s: KEYS/16 k-steps of m64nDk16, V MN-major
+  // [d/8][keys][8] (LBO: the next 8 keys, SBO: the next 8-dim group)
+  auto issue_pv = [&](int s) {
+    const uint32_t vs = ring + s * kStageBytes + kTileBytes;
+#pragma unroll
+    for (int p = 0; p < KS; ++p)
+      wgmma_rs<D>(o, pa[p], wgmma_desc(vs + p * 16 * 16, 128, KEYS * 16), 1u);
+    wgmma_commit();
+  };
+  // The online softmax of tile j's scores on rows g (r = 0) and g + 8
+  // (r = 1), in place, in the log2 domain, keys at or past nk -inf, with
+  // the running-max guard of the plain version (a row whose keys so far are
+  // all -inf keeps m = -inf and takes 0 in its exponents): sc becomes
+  // 2^(S - m), and corr O's correction factors.
+  auto softmax = [&](float (&sc)[NS], int j, float (&corr)[2]) {
+    const int left = nk - j * KEYS;  // score i of this lane: key 8 (i / 4) + t2 + i % 2
+#pragma unroll
+    for (int i = 0; i < NS; ++i)
+      sc[i] = (8 * (i >> 2) + t2 + (i & 1) < left) ? sc[i] * scale_log2 : -INFINITY;
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int i = 0; i < NS; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
+    float base[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = quad_max(mx[r]);
+      base[r] = (mx[r] == -INFINITY) ? 0.f : mx[r];
+      corr[r] = fast_exp2(m[r] - base[r]);  // 0 while m = -inf
+      m[r] = mx[r];
+      l[r] *= corr[r];
+    }
+#pragma unroll
+    for (int i = 0; i < NS; ++i) {
+      sc[i] = fast_exp2(sc[i] - base[(i >> 1) & 1]);
+      l[(i >> 1) & 1] += sc[i];
+    }
+  };
+  // O *= corr, and P in bf16 into pa (the accumulator layout of n8 tiles
+  // 2p and 2p+1 is the A layout of k16 step p); both pinned here, so that
+  // the compiler moves none of it past the next products' issue
+  auto rescale_and_pack = [&](const float (&sc)[NS], const float (&corr)[2]) {
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] *= corr[(i >> 1) & 1];
+#pragma unroll
+    for (int p = 0; p < KS; ++p)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int n = 2 * p + hh;
+        pa[p][2 * hh] = pack_bf16(sc[4 * n], sc[4 * n + 1]);
+        pa[p][2 * hh + 1] = pack_bf16(sc[4 * n + 2], sc[4 * n + 3]);
+      }
+    wgmma_fence_operands(o);
+#pragma unroll
+    for (int p = 0; p < KS; ++p) wgmma_fence_operands(pa[p]);
+  };
+  auto release = [&](int s) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty(s));
+  };
+
+  mbar_wait(qbar, 0);
+  if constexpr (D > kWgOverlapMaxD) {
+    // The plain schedule: S, its softmax, then P.V, tile after tile. Where
+    // the products take most of the time (from D = 80) it measures faster
+    // than the overlapped one below.
+    for (int j = 0; j < tiles; ++j) {
+      const int s = j % kWgStages;
+      mbar_wait(full(s), (j / kWgStages) & 1);
+      float sc[NS], corr[2];
+      wgmma_fence();
+      issue_s(sc, s);
+      wgmma_wait<0>();
+      wgmma_fence_operands(sc);
+      softmax(sc, j, corr);
+      rescale_and_pack(sc, corr);
+      wgmma_fence();
+      issue_pv(s);
+      wgmma_wait<0>();
+      wgmma_fence_operands(o);
+#pragma unroll
+      for (int p = 0; p < KS; ++p) wgmma_fence_operands(pa[p]);
+      release(s);
+    }
+  } else {
+    // The softmax-bound schedule (D <= 64). Tile j's S is issued with tile
+    // j-1's P.V, so that the softmax of tile j runs while P.V of tile j-1
+    // is in flight (P of tile j replaces P of tile j-1 in pa once that has
+    // retired); and the two warpgroups take turns to issue their products
+    // (named barriers 1 and 2), so that one's softmax runs while the
+    // other's products do. Warpgroup 1 lets warpgroup 0 take the first
+    // turn; the last turn is not handed back.
+    if (wg == 1 && tiles > 1) named_barrier_arrive(1, 2 * 128);
+    mbar_wait(full(0), 0);
+    {
+      float sc[NS], corr[2];
+      wgmma_fence();
+      issue_s(sc, 0);
+      wgmma_wait<0>();
+      wgmma_fence_operands(sc);
+      softmax(sc, 0, corr);
+      rescale_and_pack(sc, corr);
+    }
+    for (int j = 1; j < tiles; ++j) {
+      const int s = j % kWgStages, sp = (j - 1) % kWgStages;
+      mbar_wait(full(s), (j / kWgStages) & 1);
+      float sc[NS], corr[2];
+      named_barrier_sync(1 + wg, 2 * 128);
+      wgmma_fence();
+      issue_s(sc, s);
+      issue_pv(sp);
+      if (wg == 0 || j + 1 < tiles) named_barrier_arrive(2 - wg, 2 * 128);
+      wgmma_wait<1>();  // S of tile j
+      wgmma_fence_operands(sc);
+      softmax(sc, j, corr);
+      wgmma_wait<0>();  // P.V of tile j-1
+      wgmma_fence_operands(o);
+#pragma unroll
+      for (int p = 0; p < KS; ++p) wgmma_fence_operands(pa[p]);
+      release(sp);
+      rescale_and_pack(sc, corr);
+    }
+    wgmma_fence();
+    issue_pv((tiles - 1) % kWgStages);
+    wgmma_wait<0>();
+    wgmma_fence_operands(o);
+#pragma unroll
+    for (int p = 0; p < KS; ++p) wgmma_fence_operands(pa[p]);
+    release((tiles - 1) % kWgStages);
+  }
+
+  // normalise and store rows g and g + 8 of this warp inside nq
+  const int row0 = q0 + 64 * wg + 16 * (warp & 3) + (lane >> 2);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float sum = quad_sum(l[r]);
+    const float inv = sum > 0.f ? 1.f / sum : 0.f;
+    const int row = row0 + 8 * r;
+    if (row >= nq) continue;
+    __nv_bfloat16* dst = out + ((static_cast<long long>(b) * nq + row) * heads + h) * D + t2;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<uint32_t*>(dst + 8 * n) =
+          pack_bf16(o[4 * n + 2 * r] * inv, o[4 * n + 2 * r + 1] * inv);
+  }
+}
+
+template <int D>
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* out, int b, int nq,
+                         int nk, int heads, float scale_log2, dim3 grid, int threads, int smem,
+                         int stages, cudaStream_t stream) {
+  if (grid.x != static_cast<unsigned>((nq + kWgRows - 1) / kWgRows) ||
+      grid.y != static_cast<unsigned>(b * heads) || threads != kWgThreads ||
+      smem != wgmma_smem_bytes(D) || stages != kWgStages)
+    return cudaErrorInvalidConfiguration;
+  if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+       reinterpret_cast<uintptr_t>(v)) % 16)
+    return cudaErrorInvalidValue;
+  const TensorMapEncodeTiled encode = tensor_map_encoder();
+  if (encode == nullptr) return cudaErrorSymbolNotFound;
+  CUtensorMap qmap, kmap, vmap;
+  const long long row = static_cast<long long>(heads) * D;
+  constexpr int KEYS = kWgKeys;
+  if (encode_rows_map(encode, &qmap, q, D, heads, nq, b, row, row * nq, kWgRows) != CUDA_SUCCESS ||
+      encode_rows_map(encode, &kmap, k, D, heads, nk, b, row, row * nk, KEYS) != CUDA_SUCCESS ||
+      encode_rows_map(encode, &vmap, v, D, heads, nk, b, row, row * nk, KEYS) != CUDA_SUCCESS)
+    return cudaErrorInvalidValue;
+  auto kernel = flash_fwd_wgmma_kernel<D>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, kWgThreads, smem, stream>>>(qmap, kmap, vmap, static_cast<__nv_bfloat16*>(out),
+                                             nq, nk, heads, scale_log2);
+  return cudaGetLastError();
+}
 
 // ---- mma route ---------------------------------------------------------
 
@@ -345,9 +650,10 @@ cudaError_t dispatch_head_dim(const void* q, const void* k, const void* v, void*
 }  // namespace
 }  // namespace organseg
 
-// Both entries take the launch plan of ops/flash_attention.py::plan
-// (grid_x, grid_y, dynamic shared-memory bytes) and refuse one that
-// differs from the kernel's own (cudaErrorInvalidConfiguration).
+// Every entry takes the launch plan of ops/flash_attention.py::plan
+// (grid_x, grid_y, dynamic shared-memory bytes; for wgmma also threads and
+// stages) and refuses one that differs from the kernel's own
+// (cudaErrorInvalidConfiguration).
 
 // f32 route. q: contiguous [B, Nq, H, D]; k, v: contiguous [B, Nk, H, D];
 // out: contiguous [B, Nq, H, D]. D is a multiple of 4, at most 256; Nk >= 1.
@@ -366,6 +672,36 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
     return dispatch_head_dim<__nv_bfloat16>(q, k, v, out, b, nq, nk, heads, d, scale, grid,
                                             smem, s);
   return cudaErrorInvalidValue;
+}
+
+// wgmma route, bf16 only. Same layouts; D a multiple of 16, at most 128;
+// q, k, v 16-byte aligned; scale_log2 = D^-1/2 * log2(e); threads, smem
+// and stages are the plan's too.
+extern "C" int flash_attention_fwd_wgmma(const void* q, const void* k, const void* v, void* out,
+                                         int b, int nq, int nk, int heads, int d,
+                                         float scale_log2, int grid_x, int grid_y, int threads,
+                                         int smem, int stages, int device, void* stream) {
+  using namespace organseg;
+  const cudaError_t set = cudaSetDevice(device);
+  if (set != cudaSuccess) return set;
+  auto s = static_cast<cudaStream_t>(stream);
+  const dim3 grid(grid_x, grid_y);
+#define ORGANSEG_CASE(D)                                                                   \
+  case D:                                                                                  \
+    return launch_wgmma<D>(q, k, v, out, b, nq, nk, heads, scale_log2, grid, threads, smem, \
+                           stages, s);
+  switch (d) {
+    ORGANSEG_CASE(16)
+    ORGANSEG_CASE(32)
+    ORGANSEG_CASE(48)
+    ORGANSEG_CASE(64)
+    ORGANSEG_CASE(80)
+    ORGANSEG_CASE(96)
+    ORGANSEG_CASE(112)
+    ORGANSEG_CASE(128)
+    default: return cudaErrorInvalidValue;
+  }
+#undef ORGANSEG_CASE
 }
 
 // mma route, bf16 only. Same layouts; D a multiple of 16, at most 128; every

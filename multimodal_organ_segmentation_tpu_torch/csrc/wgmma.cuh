@@ -2,14 +2,18 @@
 // arrive, arrive with an expected byte count, a parity wait that traps
 // instead of hanging), asynchronous bulk copies into shared memory (TMA
 // tensor tiles through a CUtensorMap, and plain contiguous pieces), wgmma
-// matrix descriptors, fences, commit and wait, and the host-side lookup of
-// the driver's tensor-map encoder.
+// matrix descriptors, fences, commit and wait, register reallocation
+// between warpgroups, named barriers, and the host-side lookup of the
+// driver's tensor-map encoder.
 //
 // wgmma descriptors here use no swizzle. A K-major operand is then built of
 // core matrices of 8 rows x 16 bytes, the 8 rows 16 bytes apart (128
 // contiguous bytes); LBO is the byte distance between the two core matrices
 // of a k16 step (along K), SBO the distance between 8-row groups (along M
-// or N).
+// or N). An MN-major operand (B with imm-trans-b = 1) is built of core
+// matrices of 8 k-rows x 16 bytes along N, again 128 contiguous bytes; LBO
+// is then the distance between the two 8-row halves of the k16 step, SBO
+// the distance between 8-element groups along N.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums (types only: nothing is linked)
@@ -18,6 +22,7 @@
 #include <cstdint>
 
 #include "mma.cuh"  // smem_u32
+#include "wgmma_shapes.cuh"
 
 namespace organseg {
 
@@ -85,6 +90,16 @@ __device__ __forceinline__ void tma_load_5d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
+// TMA: one box of a rank-4 tensor map, as tma_load_5d.
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
 // A contiguous piece of global memory into shared memory; source,
 // destination and size are multiples of 16 bytes.
 __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
@@ -123,6 +138,33 @@ template <int N>
 __device__ __forceinline__ void wgmma_fence_operands(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_fence_operands(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+// Hand registers back to the SM's pool (a producer warpgroup) or take them
+// (consumer warpgroups); every warp of a warpgroup executes the same one.
+template <int kRegs>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kRegs));
+}
+template <int kRegs>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kRegs));
+}
+
+// A barrier of `threads` threads (a multiple of 32) other than
+// __syncthreads()'s barrier 0: sync waits for `threads` arrivals (its own
+// included), arrive adds this warp's without waiting.
+__device__ __forceinline__ void named_barrier_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+__device__ __forceinline__ void named_barrier_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 // D[64x48] (+)= A[64x16] . B[16x48], bf16 in, f32 accumulate, A and B
@@ -169,6 +211,27 @@ inline TensorMapEncodeTiled tensor_map_encoder() {
                : nullptr;
   }();
   return fn;
+}
+
+// A bf16 view [batch][rows][heads][d] (d contiguous, the other strides in
+// elements, multiples of 8) as a rank-4 tensor map, innermost first
+// {d, heads, rows, batch}, whose box is one 8-element group of `box_rows`
+// rows of one head: it lands in shared memory as [box_rows][8], 16 bytes a
+// row, the no-swizzle core-matrix layout of a wgmma operand. Rows past
+// `rows` arrive as zeros.
+inline CUresult encode_rows_map(TensorMapEncodeTiled encode, CUtensorMap* map, const void* base,
+                                int d, int heads, int rows, long long batch, long long row_stride,
+                                long long batch_stride, int box_rows) {
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(rows), static_cast<cuuint64_t>(batch)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(d) * 2,
+                                 static_cast<cuuint64_t>(row_stride) * 2,
+                                 static_cast<cuuint64_t>(batch_stride) * 2};
+  const cuuint32_t box[4] = {8, 1, static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides,
+                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
 }  // namespace organseg

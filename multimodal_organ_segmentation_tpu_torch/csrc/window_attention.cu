@@ -15,9 +15,36 @@
 // against 0.185 ms for the products at the bf16 tensor-core rate and
 // 0.54 ms for the bytes. The exponentials bound it.
 //
-// Two routes, chosen by the wrapper (ops/window_attention.py::plan):
+// Three routes, chosen by the wrapper (ops/window_attention.py::plan):
 //
-// mma (bf16, D a multiple of 16 up to 64, 16-byte aligned rows): the
+// wgmma (bf16, D a multiple of 16 up to 64, 16-byte aligned rows, N up to
+//  256 where a ring stage fits beside the staged bias): Hopper's warpgroup
+//  products fed by TMA, with a whole row of scores in the accumulators:
+//  * one block of 384 threads per (head h, window position w) walks a
+//    group of the batch's tiles b: two consumer warpgroups and a producer
+//    warpgroup that gives them its registers (setmaxnreg 40 / 232). The
+//    walk's length is the plan's (wgmma_walk): one block fills an SM, so
+//    the grid runs in waves of 132, and the walk trades the waves against
+//    each block's staging of the bias;
+//  * the consumers stage (bias[h] + mask[w]) * log2(e) once a block in
+//    fp16, as the mma route does, with many float4 reads in flight a
+//    thread (the staging's time is the reads' latency), every row of the
+//    window: 224 x 216 halves, 97 KB at N = 216;
+//  * one producer thread streams each tile's Q, K and V rows of (b, w, h)
+//    by TMA into a ring of up to 3 stages under full / empty mbarriers, as
+//    [D/8][rows][8] (one box per 8-dim group; rows past N arrive as zeros):
+//    the no-swizzle core-matrix layout, K-major for Q and K, MN-major for V;
+//  * a window's rows are 64-row tiles (4 at N = 216) that the two
+//    warpgroups take in turn. S for a tile's whole row is one m64n64k16 per
+//    64 keys and 16 dims (4 at N = 216, D = 16): all the keys in the
+//    accumulators, so one max, one pass of ex2 and one sum, and no
+//    rescale. The bias is added from shared memory; a warp whose 16 rows all
+//    lie past N skips its exponentials (rows 224-255 at N = 216); P goes
+//    in bf16 from the accumulators into the A operand (registers) of
+//    O = P.V, m64nDk16 over 14 k16 steps (224 keys) at N = 216.
+//
+// mma (bf16, D a multiple of 16 up to 64, 16-byte aligned rows; the
+//  windows past the wgmma route: N = 343 and 512): the
 //  products go to mma.sync m16n8k16 tensor-core tiles, so what is left is
 //  the exponentials, one ex2 a score (log2(e) folded into the scale and the
 //  staged bias), and the bias and mask reads that would otherwise feed them:
@@ -66,16 +93,360 @@
 //    can hit in L2.
 #include "common.cuh"
 #include "mma.cuh"
+#include "wgmma.cuh"
 
 #include <cuda_fp16.h>
 
 namespace organseg {
 namespace {
 
-// ---- mma route ---------------------------------------------------------
-
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kHalfMax = 65504.f;
+
+// ---- wgmma route -------------------------------------------------------
+
+constexpr int kWgThreads = 384;  // two consumer warpgroups and the producer warpgroup
+constexpr int kWgConsumers = 256;
+constexpr int kWgMaxStages = 3;
+constexpr int kWgBars = 8 * 2 * kWgMaxStages;
+
+// The score columns of a window of n tokens, in n8 tiles: the fewest of 8,
+// 16, 27 or 32 that cover n (each is a build of the kernel).
+__host__ __device__ constexpr int wgmma_key_tiles(int n) { return n <= 64 ? 8 : n <= 128 ? 16 : n <= 216 ? 27 : 32; }
+
+// The wgmma route's shared-memory pieces for n tokens, head dim d: the
+// staged bias rows [kpad][bias_stride] fp16 (bias_stride = 8 mod 16
+// elements: conflict-free half2 reads), rounded up to 128 bytes, and one
+// ring stage, Q [d/8][64 * ceil(n/64)][8], K and V [d/8][kpad][8], bf16.
+struct WgmmaLayout {
+  int nt8, kpad, row_tiles, qpad, bias_stride, bias_bytes, stage_bytes;
+};
+
+__host__ __device__ constexpr WgmmaLayout wgmma_layout(int n, int d) {
+  const int nt8 = wgmma_key_tiles(n);
+  const int kpad = 16 * ((nt8 + 1) / 2);
+  const int row_tiles = (n + 63) / 64;
+  const int bias_stride = 8 * nt8 + (nt8 % 2 ? 0 : 8);
+  return {nt8, kpad, row_tiles, 64 * row_tiles, bias_stride,
+          (2 * kpad * bias_stride + 127) / 128 * 128, (64 * row_tiles + 2 * kpad) * d * 2};
+}
+
+constexpr int wgmma_smem_bytes(int n, int d, int stages) {
+  return wgmma_layout(n, d).bias_bytes + stages * wgmma_layout(n, d).stage_bytes + kWgBars + 128;
+}
+
+__device__ __forceinline__ __half stage_value(float x, int i, int j, int n) {
+  float y = j < n ? (i < n ? x * kLog2e : 0.f) : -INFINITY;
+  if (y == y && j < n) y = fminf(fmaxf(y, -kHalfMax), kHalfMax);  // NaN stays NaN
+  return __float2half_rn(y);
+}
+
+// The wgmma route's staged bias, [KPAD][BS] fp16 in shared memory: element
+// (i, j) is (bias_h + mask_w)[i, j] * log2(e) for i, j < n, 0 in the rows
+// past n and -inf in the columns past n (up to 8 NT8). The staging's time
+// is the reads' latency, so each thread keeps many in flight: four float4
+// loads of each table at once where rows are whole float4s (n % 4 == 0 and
+// 16-byte aligned tables), eight scalar ones otherwise.
+template <int NT8, int KPAD, int BS>
+__device__ __forceinline__ void stage_bias(__half* bm, const float* __restrict__ bias_h,
+                                           const float* __restrict__ mask_w, int n, int tid,
+                                           int threads) {
+  constexpr int kCols = 8 * NT8;
+  const bool vec = n % 4 == 0 && (reinterpret_cast<uintptr_t>(bias_h) % 16 == 0) &&
+                   (mask_w == nullptr || reinterpret_cast<uintptr_t>(mask_w) % 16 == 0);
+  if (vec) {
+    constexpr int kU = 4;
+    const int quads = n * n / 4;
+    const float4* b4 = reinterpret_cast<const float4*>(bias_h);
+    const float4* m4 = reinterpret_cast<const float4*>(mask_w);
+    for (int e0 = tid; e0 < quads; e0 += kU * threads) {
+      float4 x[kU], y[kU];
+#pragma unroll
+      for (int u = 0; u < kU; ++u) {
+        const int e = min(e0 + u * threads, quads - 1);
+        x[u] = __ldg(b4 + e);
+        y[u] = mask_w ? __ldg(m4 + e) : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+#pragma unroll
+      for (int u = 0; u < kU; ++u) {
+        const int e = e0 + u * threads;
+        if (e >= quads) break;
+        const int i = 4 * e / n, j = 4 * e - i * n;
+        __half2* dst = reinterpret_cast<__half2*>(bm + i * BS + j);
+        dst[0] = __halves2half2(stage_value(x[u].x + y[u].x, i, j, n),
+                                stage_value(x[u].y + y[u].y, i, j + 1, n));
+        dst[1] = __halves2half2(stage_value(x[u].z + y[u].z, i, j + 2, n),
+                                stage_value(x[u].w + y[u].w, i, j + 3, n));
+      }
+    }
+    // the padding: rows past n (0), then columns past n (-inf)
+    for (int e = tid; e < (KPAD - n) * n; e += threads) {
+      const int i = n + e / n;
+      bm[i * BS + e % n] = __float2half_rn(0.f);
+    }
+    for (int e = tid; e < KPAD * (kCols - n); e += threads) {
+      const int i = e / (kCols - n);
+      bm[i * BS + n + e % (kCols - n)] = __float2half_rn(-INFINITY);
+    }
+    return;
+  }
+  constexpr int kU = 8;
+  for (int e0 = tid; e0 < KPAD * kCols; e0 += kU * threads) {
+    float x[kU];
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      const int e = e0 + u * threads;
+      const int i = e / kCols, j = e - (e / kCols) * kCols;
+      const int off = (i < n && j < n) ? i * n + j : 0;
+      x[u] = __ldg(bias_h + off);
+      if (mask_w) x[u] += __ldg(mask_w + off);
+    }
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      const int e = e0 + u * threads;
+      const int i = e / kCols, j = e - (e / kCols) * kCols;
+      if (i >= KPAD) break;
+      bm[i * BS + j] = stage_value(x[u], i, j, n);
+    }
+  }
+}
+
+template <int D, int NT8>
+__global__ void __launch_bounds__(kWgThreads, 1)
+window_mha_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
+                        const __grid_constant__ CUtensorMap kmap,
+                        const __grid_constant__ CUtensorMap vmap, const float* __restrict__ bias,
+                        const float* __restrict__ mask, __nv_bfloat16* __restrict__ out, int n,
+                        int heads, int num_windows, int batch, int tiles_per_block, int stages,
+                        float scale_log2) {
+  constexpr int G = D / 8;                // 8-dim groups: the TMA boxes of a window
+  constexpr int NC = (NT8 + 7) / 8;       // m64n64 score chunks
+  constexpr int KS = (NT8 + 1) / 2;       // k16 steps of P.V
+  constexpr WgmmaLayout L = wgmma_layout(8 * NT8, D);
+  constexpr int KPAD = L.kpad;
+  constexpr int BS = L.bias_stride;
+  const int row_tiles = (n + 63) / 64;
+  const int qpad = 64 * row_tiles;
+  const int stage_bytes = (qpad + 2 * KPAD) * D * 2;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 127u) & ~127u;
+  __half* bm = reinterpret_cast<__half*>(smem_raw + (base - smem_u32(smem_raw)));
+  const uint32_t ring = base + L.bias_bytes;
+  const uint32_t bars = ring + stages * stage_bytes;
+  auto full = [&](int s) { return bars + 8u * s; };
+  auto empty = [&](int s) { return bars + 8u * (kWgMaxStages + s); };
+
+  const int h = blockIdx.x % heads;
+  const int w = blockIdx.x / heads;
+  const int b_first = blockIdx.y * tiles_per_block;
+  const int b_last = min(batch, b_first + tiles_per_block);
+  const int warp = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x >> 5), 0);
+  const int lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), kWgConsumers / 32);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp >= kWgConsumers / 32) {
+    // producer warpgroup: one thread streams each tile's Q, K and V of
+    // window (b, w), head h
+    setmaxnreg_dec<40>();
+    if (warp == kWgConsumers / 32 && lane == 0) {
+      for (int b = b_first, it = 0; b < b_last; ++b, ++it) {
+        const int s = it % stages;
+        mbar_wait(empty(s), ((it / stages) & 1) ^ 1);
+        const uint32_t qs = ring + s * stage_bytes;
+        const uint32_t ks = qs + qpad * D * 2;
+        const uint32_t vs = ks + KPAD * D * 2;
+        const int bw = b * num_windows + w;
+        mbar_arrive_expect_tx(full(s), stage_bytes);
+        for (int g = 0; g < G; ++g) {
+          tma_load_4d(qs + g * qpad * 16, &qmap, full(s), 8 * g, h, 0, bw);
+          tma_load_4d(ks + g * KPAD * 16, &kmap, full(s), 8 * g, h, 0, bw);
+          tma_load_4d(vs + g * KPAD * 16, &vmap, full(s), 8 * g, h, 0, bw);
+        }
+      }
+    }
+    return;
+  }
+
+  setmaxnreg_inc<232>();
+  // (bias[h] + mask[w]) * log2(e) in fp16, every row once for all the
+  // block's tiles; -inf in the columns past n, 0 in the rows past n
+  const float* bias_h = bias + static_cast<long long>(h) * n * n;
+  const float* mask_w = mask ? mask + static_cast<long long>(w) * n * n : nullptr;
+  stage_bias<NT8, KPAD, BS>(bm, bias_h, mask_w, n, threadIdx.x, kWgConsumers);
+  named_barrier_sync(1, kWgConsumers);
+
+  const int wg = warp >> 2;
+  const int g = lane >> 2;
+  const int t2 = 2 * (lane & 3);
+  for (int b = b_first, it = 0; b < b_last; ++b, ++it) {
+    const int s = it % stages;
+    mbar_wait(full(s), (it / stages) & 1);
+    const uint32_t qs = ring + s * stage_bytes;
+    const uint32_t ks = qs + qpad * D * 2;
+    const uint32_t vs = ks + KPAD * D * 2;
+    const long long bw = static_cast<long long>(b) * num_windows + w;
+    // the tile's 64-row tiles go to the two warpgroups in turn, the turn
+    // moving by one each tile when row_tiles is even
+    const int first = it * row_tiles + (row_tiles % 2 ? 0 : it);
+    for (int rt = (first + wg) & 1; rt < row_tiles; rt += 2) {
+      // S = Q.K^T for the whole row: NC chunks of m64n64, D/16 k-steps each
+      float sc[NC][32];
+      wgmma_fence();
+#pragma unroll
+      for (int c = 0; c < NC; ++c)
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          wgmma_ss<64>(sc[c], wgmma_desc(qs + (2 * kk * qpad + 64 * rt) * 16, qpad * 16, 128),
+                       wgmma_desc(ks + (2 * kk * KPAD + 64 * c) * 16, KPAD * 16, 128),
+                       kk > 0 ? 1u : 0u);
+      wgmma_commit();
+      wgmma_wait<0>();
+#pragma unroll
+      for (int c = 0; c < NC; ++c) wgmma_fence_operands(sc[c]);
+
+      // one max, one pass of ex2 and one sum over all the keys; a warp whose
+      // 16 rows all lie past n skips them (its P is 0)
+      const int wrow = 64 * rt + 16 * (warp & 3);
+      uint32_t pa[KS][4];
+      float l[2] = {0.f, 0.f};
+      if (wrow < n) {
+        const __half* brow = bm + (wrow + g) * BS + t2;
+        float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+        for (int nt = 0; nt < NT8; ++nt) {
+          float* t = &sc[nt / 8][4 * (nt % 8)];
+          const float2 b0 = __half22float2(*reinterpret_cast<const __half2*>(brow + 8 * nt));
+          const float2 b1 = __half22float2(*reinterpret_cast<const __half2*>(brow + 8 * BS + 8 * nt));
+          t[0] = fmaf(t[0], scale_log2, b0.x);
+          t[1] = fmaf(t[1], scale_log2, b0.y);
+          t[2] = fmaf(t[2], scale_log2, b1.x);
+          t[3] = fmaf(t[3], scale_log2, b1.y);
+          mx[0] = fmaxf(mx[0], fmaxf(t[0], t[1]));
+          mx[1] = fmaxf(mx[1], fmaxf(t[2], t[3]));
+        }
+        float base_r[2];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          mx[r] = quad_max(mx[r]);
+          base_r[r] = (mx[r] == -INFINITY) ? 0.f : mx[r];
+        }
+#pragma unroll
+        for (int nt = 0; nt < NT8; ++nt) {
+          float* t = &sc[nt / 8][4 * (nt % 8)];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) t[e] = fast_exp2(t[e] - base_r[e >> 1]);
+          l[0] += t[0] + t[1];
+          l[1] += t[2] + t[3];
+        }
+#pragma unroll
+        for (int p = 0; p < KS; ++p)
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            const int nt = 2 * p + hh;
+            const float* t = &sc[nt / 8][4 * (nt % 8)];
+            pa[p][2 * hh] = nt < NT8 ? pack_bf16(t[0], t[1]) : 0u;
+            pa[p][2 * hh + 1] = nt < NT8 ? pack_bf16(t[2], t[3]) : 0u;
+          }
+      } else {
+#pragma unroll
+        for (int p = 0; p < KS; ++p) pa[p][0] = pa[p][1] = pa[p][2] = pa[p][3] = 0u;
+      }
+
+      // O = P.V: KS k-steps of m64nDk16, V MN-major [d/8][kpad][8]; V's
+      // rows past n are zeros
+      float o[D / 2];
+      wgmma_fence();
+#pragma unroll
+      for (int p = 0; p < KS; ++p)
+        wgmma_rs<D>(o, pa[p], wgmma_desc(vs + p * 16 * 16, 128, KPAD * 16), p > 0 ? 1u : 0u);
+      wgmma_commit();
+      wgmma_wait<0>();
+      wgmma_fence_operands(o);
+#pragma unroll
+      for (int p = 0; p < KS; ++p) wgmma_fence_operands(pa[p]);
+
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float sum = quad_sum(l[r]);
+        const float inv = sum > 0.f ? 1.f / sum : 0.f;
+        const int row = wrow + g + 8 * r;
+        if (row >= n) continue;
+        __nv_bfloat16* dst = out + ((bw * n + row) * heads + h) * D + t2;
+#pragma unroll
+        for (int nt = 0; nt < D / 8; ++nt)
+          *reinterpret_cast<uint32_t*>(dst + 8 * nt) =
+              pack_bf16(o[4 * nt + 2 * r] * inv, o[4 * nt + 2 * r + 1] * inv);
+      }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty(s));
+  }
+}
+
+template <int D, int NT8>
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v, long long stride_w,
+                         long long stride_n, const float* bias, const float* mask, void* out,
+                         int bw, int n, int heads, int num_windows, float scale_log2,
+                         int tiles_per_block, int stages, dim3 grid, int threads, int smem,
+                         cudaStream_t stream) {
+  const int batch = bw / num_windows;
+  const WgmmaLayout lay = wgmma_layout(n, D);
+  if (tiles_per_block < 1 || stages < 1 || stages > kWgMaxStages || threads != kWgThreads ||
+      grid.x != static_cast<unsigned>(heads * num_windows) ||
+      grid.y != static_cast<unsigned>((batch + tiles_per_block - 1) / tiles_per_block) ||
+      smem != wgmma_smem_bytes(n, D, stages))
+    return cudaErrorInvalidConfiguration;
+  const TensorMapEncodeTiled encode = tensor_map_encoder();
+  if (encode == nullptr) return cudaErrorSymbolNotFound;
+  CUtensorMap qmap, kmap, vmap;
+  if (encode_rows_map(encode, &qmap, q, D, heads, n, bw, stride_n, stride_w, lay.qpad) !=
+          CUDA_SUCCESS ||
+      encode_rows_map(encode, &kmap, k, D, heads, n, bw, stride_n, stride_w, lay.kpad) !=
+          CUDA_SUCCESS ||
+      encode_rows_map(encode, &vmap, v, D, heads, n, bw, stride_n, stride_w, lay.kpad) !=
+          CUDA_SUCCESS)
+    return cudaErrorInvalidValue;
+  auto kernel = window_mha_wgmma_kernel<D, NT8>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, kWgThreads, smem, stream>>>(qmap, kmap, vmap, bias, mask,
+                                             static_cast<__nv_bfloat16*>(out), n, heads,
+                                             num_windows, batch, tiles_per_block, stages,
+                                             scale_log2);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t dispatch_key_tiles(const void* q, const void* k, const void* v, long long stride_w,
+                               long long stride_n, const float* bias, const float* mask,
+                               void* out, int bw, int n, int heads, int num_windows,
+                               float scale_log2, int tiles_per_block, int stages, dim3 grid,
+                               int threads, int smem, cudaStream_t stream) {
+#define ORGANSEG_CASE(NT)                                                                      \
+  case NT:                                                                                     \
+    return launch_wgmma<D, NT>(q, k, v, stride_w, stride_n, bias, mask, out, bw, n, heads,     \
+                               num_windows, scale_log2, tiles_per_block, stages, grid, threads, \
+                               smem, stream);
+  switch (wgmma_key_tiles(n)) {
+    ORGANSEG_CASE(8)
+    ORGANSEG_CASE(16)
+    ORGANSEG_CASE(27)
+    ORGANSEG_CASE(32)
+    default:
+      return cudaErrorInvalidValue;
+  }
+#undef ORGANSEG_CASE
+}
+
+// ---- mma route ---------------------------------------------------------
 
 // Shared memory of the mma route: the staged bias rows [rows][bm_stride]
 // fp16, then two buffers of [rows + 2 * kpad][D + 8] bf16 (Q rows, K, V).
@@ -380,7 +751,7 @@ cudaError_t dispatch_head_dim(int d, const void* q, const void* k, const void* v
 }  // namespace
 }  // namespace organseg
 
-// Both entries take the launch plan of ops/window_attention.py::plan and
+// Every entry takes the launch plan of ops/window_attention.py::plan and
 // refuse one that differs from the kernel's own
 // (cudaErrorInvalidConfiguration).
 //
@@ -408,6 +779,43 @@ extern "C" int window_mha_fwd(const void* q, const void* k, const void* v,
     return dispatch_head_dim<__nv_bfloat16>(d, q, k, v, stride_w, stride_n, b, m, out, bw, n,
                                             heads, num_windows, scale, grid, smem, s);
   return cudaErrorInvalidValue;
+}
+
+// wgmma route, bf16 only: D in 16..64 step 16, N <= 256, q/k/v pointers
+// and strides 16-byte aligned; each block one (head, window position)
+// walking tiles_per_block tiles through a ring of `stages` stages;
+// scale_log2 = D^-1/2 * log2(e).
+extern "C" int window_mha_fwd_wgmma(const void* q, const void* k, const void* v,
+                                    long long stride_w, long long stride_n, const void* bias,
+                                    const void* mask, void* out, int bw, int n, int heads, int d,
+                                    int num_windows, float scale_log2, int tiles_per_block,
+                                    int stages, int grid_x, int grid_y, int threads, int smem,
+                                    int device, void* stream) {
+  using namespace organseg;
+  const cudaError_t set = cudaSetDevice(device);
+  if (set != cudaSuccess) return set;
+  if (n < 1 || n > 256 || (reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                           reinterpret_cast<uintptr_t>(v)) % 16 ||
+      stride_w % 8 || stride_n % 8)
+    return cudaErrorInvalidValue;
+  const auto* b = static_cast<const float*>(bias);
+  const auto* m = static_cast<const float*>(mask);
+  auto s = static_cast<cudaStream_t>(stream);
+  const dim3 grid(grid_x, grid_y);
+#define ORGANSEG_CASE(DIM)                                                                    \
+  case DIM:                                                                                   \
+    return dispatch_key_tiles<DIM>(q, k, v, stride_w, stride_n, b, m, out, bw, n, heads,      \
+                                   num_windows, scale_log2, tiles_per_block, stages, grid,    \
+                                   threads, smem, s);
+  switch (d) {
+    ORGANSEG_CASE(16)
+    ORGANSEG_CASE(32)
+    ORGANSEG_CASE(48)
+    ORGANSEG_CASE(64)
+    default:
+      return cudaErrorInvalidValue;
+  }
+#undef ORGANSEG_CASE
 }
 
 // mma route, bf16 only: D in 16..64 step 16, q/k/v pointers and strides

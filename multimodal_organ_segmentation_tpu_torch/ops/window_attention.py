@@ -14,10 +14,12 @@ an exported program; its gradient (the JAX kernel is a ``custom_vjp``),
 registered with ``register_autograd``, differentiates the plain version on
 the saved inputs.
 
-The kernel has two routes, and :func:`plan` picks one by this rule: bf16
+The kernel has three routes, and :func:`plan` picks one by this rule: bf16
 with a head dim in ``MMA_HEAD_DIMS``, q, k, v starting on 16-byte
-boundaries with window and token strides that are multiples of 8 elements,
-and a plan that fits shared memory, takes ``"mma"`` (tensor cores); the rest
+boundaries with window and token strides that are multiples of 8 elements
+takes a tensor-core route: ``"wgmma"`` (Hopper's warpgroup products fed by
+TMA) for windows of up to ``WGMMA_MAX_TOKENS`` tokens where its ring fits
+shared memory, else ``"mma"`` (mma.sync) where that plan fits; the rest
 (float32, other head dims or alignments) takes ``"f32"`` (the f32 pipes).
 ``window_mha.launches`` counts the launches of each route.
 """
@@ -36,7 +38,13 @@ from multimodal_organ_segmentation_tpu_torch.ops import _build
 MAX_TOKENS = 512  # the f32 route keeps at most 16 keys per lane in registers
 HEAD_DIMS = (8, 16, 24, 32, 40, 48, 56, 64)  # the head dims the kernel is built for
 MMA_HEAD_DIMS = (16, 32, 48, 64)  # the tensor-core route: whole k16 steps
-ROUTES = ("mma", "f32")
+WGMMA_MAX_TOKENS = 256  # the wgmma route keeps a whole row of scores in accumulators
+WGMMA_KEY_TILES = (8, 16, 27, 32)  # its builds: score columns in n8 tiles (64, 128, 216, 256)
+WGMMA_MAX_STAGES = 3
+WGMMA_THREADS = 384  # two consumer warpgroups and the producer warpgroup
+WGMMA_MAX_WALK = 64  # tiles one block of the wgmma route walks at most
+WGMMA_STAGING = 2  # a wgmma block's staging of its bias, in tile times (H100, N = 216)
+ROUTES = ("wgmma", "mma", "f32")
 SMEM_LIMIT = 232_448  # dynamic shared memory one block can use on Hopper (227 KB)
 SM_COUNT = 132  # H100 SXM; a plan for another card passes its own
 MAX_WALK = 16  # tiles one block of the mma route walks at most
@@ -54,6 +62,10 @@ _SIGNATURES = {
     "window_mha_fwd_mma": (
         _I, [_P, _P, _P, _L, _L, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _I, _I, _I, _I, _P],
     ),
+    "window_mha_fwd_wgmma": (
+        _I, [_P, _P, _P, _L, _L, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _I, _I, _I, _I, _I,
+             _P],
+    ),
 }
 
 
@@ -64,36 +76,116 @@ def _mma_smem(rows: int, kpad: int, d: int) -> int:
     return 2 * rows * (kpad + 8) + 2 * 2 * (rows + 2 * kpad) * (d + 8)
 
 
+def wgmma_layout(n: int, d: int) -> dict:
+    """The wgmma route's shapes for windows of n tokens at head dim d, as
+    ``csrc/window_attention.cu::wgmma_layout``: ``key_tiles`` (score columns
+    in n8 tiles, the build that covers n), ``kpad`` (K and V rows, whole k16
+    steps of P.V), ``qpad`` (Q rows, whole 64-row tiles), the staged bias's
+    bytes (``kpad`` rows of fp16, the row stride 8 mod 16 elements, rounded
+    up to 128 bytes) and one ring stage's bytes (Q, K, V in bf16)."""
+    nt8 = next(t for t in WGMMA_KEY_TILES if 8 * t >= n)
+    kpad = 16 * math.ceil(nt8 / 2)
+    qpad = 64 * math.ceil(n / 64)
+    stride = 8 * nt8 + (0 if nt8 % 2 else 8)
+    return dict(key_tiles=nt8, kpad=kpad, qpad=qpad,
+                bias_bytes=math.ceil(2 * kpad * stride / 128) * 128,
+                stage_bytes=(qpad + 2 * kpad) * d * 2)
+
+
+def wgmma_smem(n: int, d: int, stages: int) -> int:
+    """Shared memory of the wgmma route: the staged bias, ``stages`` ring
+    stages, the mbarriers of three stages and 128 bytes to align the base."""
+    lay = wgmma_layout(n, d)
+    return lay["bias_bytes"] + stages * lay["stage_bytes"] + 8 * 2 * WGMMA_MAX_STAGES + 128
+
+
+@functools.lru_cache(maxsize=None)
+def wgmma_walk(batch: int, blocks: int, sm_count: int) -> int:
+    """Tiles one block of the wgmma route walks. One block fills an SM
+    (its shared memory and all 64K registers), so the grid runs in waves of
+    ``sm_count`` blocks and takes about waves x (tiles + ``WGMMA_STAGING``)
+    tile times, the last term a block's staging of its bias and the filling
+    of its ring. The walk of at most ``WGMMA_MAX_WALK`` tiles, cut into
+    equal groups, that takes the least (the shorter walk on a tie)."""
+    best = None
+    for t in range(1, min(batch, WGMMA_MAX_WALK) + 1):
+        groups = math.ceil(batch / t)
+        tiles = math.ceil(batch / groups)
+        cost = math.ceil(blocks * groups / sm_count) * (tiles + WGMMA_STAGING)
+        if best is None or cost < best[0]:
+            best = (cost, tiles)
+    return best[1]
+
+
 def plan(bw: int, n: int, heads: int, d: int, num_windows: int, dtype: torch.dtype,
-         aligned: bool = True, sm_count: int = SM_COUNT) -> dict:
+         aligned: bool = True, sm_count: int = SM_COUNT, route: Optional[str] = None) -> dict:
     """The route and launch plan of kernel A for one call: ``route``,
     ``grid`` (x, y), ``threads`` a block, ``rows`` (query rows a block),
-    ``tiles_per_block`` (tiles b a block walks) and ``smem`` (dynamic
-    shared-memory bytes).
+    ``tiles_per_block`` (tiles b a block walks), ``smem`` (dynamic
+    shared-memory bytes) and, for wgmma, ``stages`` (the ring's).
     ``aligned``: q, k, v start on 16-byte boundaries and their window and
-    token strides are multiples of 8 elements.
+    token strides are multiples of 8 elements. ``route`` forces a route (a
+    check that times one route against another); it raises where that
+    route does not take the call.
 
-    mma: block x = (row block, head, window), row block fastest and window
+    Routes: bf16 at a head dim of ``MMA_HEAD_DIMS`` with aligned inputs
+    takes wgmma where N <= ``WGMMA_MAX_TOKENS`` and at least one ring stage
+    fits beside the staged bias, and mma otherwise (N = 343 and 512, the
+    ``monai_compat`` and 8³ windows, and the widest heads at N near 256);
+    the rest takes f32.
+
+    wgmma: block x = (head, window), head fastest; block y = group of tiles
+    (``wgmma_walk``). One block covers all of a window's rows: 64-row
+    tiles, two consumer warpgroups taking them in turn. mma and f32: see
+    :func:`mma_plan` and :func:`f32_plan`."""
+    tensor_cores = dtype == torch.bfloat16 and d in MMA_HEAD_DIMS and aligned
+    found = None
+    if tensor_cores and n <= WGMMA_MAX_TOKENS and route in (None, "wgmma"):
+        free = SMEM_LIMIT - wgmma_smem(n, d, 0)
+        stages = min(WGMMA_MAX_STAGES, free // wgmma_layout(n, d)["stage_bytes"])
+        if stages >= 1:
+            batch, blocks = bw // num_windows, heads * num_windows
+            tiles = wgmma_walk(batch, blocks, sm_count)
+            found = dict(route="wgmma", grid=(blocks, math.ceil(batch / tiles)),
+                         threads=WGMMA_THREADS, rows=wgmma_layout(n, d)["qpad"],
+                         tiles_per_block=tiles, stages=stages, smem=wgmma_smem(n, d, stages))
+    if found is None and tensor_cores and route in (None, "mma"):
+        found = mma_plan(bw, n, heads, d, num_windows, sm_count)
+    if found is None and route in (None, "f32"):
+        found = f32_plan(bw, n, heads, d)
+    if found is None:
+        raise ValueError(f"window_mha: route {route!r} does not take N={n}, head dim {d}, "
+                         f"{dtype} (aligned: {aligned})")
+    return found
+
+
+def mma_plan(bw: int, n: int, heads: int, d: int, num_windows: int,
+             sm_count: int = SM_COUNT) -> Optional[dict]:
+    """The mma route's plan, or None where no row block fits shared memory.
+    Block x = (row block, head, window), row block fastest and window
     slowest; block y = group of tiles. Rows a block: 16 a warp, the fewest
     row blocks of at most ``MAX_WARPS`` warps that cover N and fit shared
     memory. Tiles a block: all of the batch up to ``MAX_WALK``, fewer where
-    the grid would otherwise give an SM fewer than two blocks. f32: one
-    block of 8 warps per (window, head), every row."""
+    the grid would otherwise give an SM fewer than two blocks."""
     batch = bw // num_windows
-    if dtype == torch.bfloat16 and d in MMA_HEAD_DIMS and aligned:
-        kpad = math.ceil(n / 16) * 16
-        m_tiles = kpad // 16
-        for row_blocks in range(math.ceil(m_tiles / MAX_WARPS), m_tiles + 1):
-            warps = math.ceil(m_tiles / row_blocks)
-            smem = _mma_smem(16 * warps, kpad, d)
-            if smem <= SMEM_LIMIT:
-                blocks = row_blocks * heads * num_windows
-                groups = min(batch, max(math.ceil(batch / MAX_WALK),
-                                        math.ceil(2 * sm_count / blocks)))
-                tiles = batch // groups
-                return dict(route="mma", grid=(blocks, math.ceil(batch / tiles)),
-                            threads=32 * warps, rows=16 * warps, tiles_per_block=tiles,
-                            smem=smem)
+    kpad = math.ceil(n / 16) * 16
+    m_tiles = kpad // 16
+    for row_blocks in range(math.ceil(m_tiles / MAX_WARPS), m_tiles + 1):
+        warps = math.ceil(m_tiles / row_blocks)
+        smem = _mma_smem(16 * warps, kpad, d)
+        if smem <= SMEM_LIMIT:
+            blocks = row_blocks * heads * num_windows
+            groups = min(batch, max(math.ceil(batch / MAX_WALK),
+                                    math.ceil(2 * sm_count / blocks)))
+            tiles = batch // groups
+            return dict(route="mma", grid=(blocks, math.ceil(batch / tiles)),
+                        threads=32 * warps, rows=16 * warps, tiles_per_block=tiles, smem=smem)
+    return None
+
+
+def f32_plan(bw: int, n: int, heads: int, d: int) -> dict:
+    """The f32 route's plan: one block of 8 warps per (window, head), every
+    row."""
     return dict(route="f32", grid=(bw * heads, 1), threads=256, rows=n, tiles_per_block=1,
                 smem=2 * n * (d + 4) * 4)
 
@@ -156,14 +248,15 @@ def _aligned(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
             and q.stride(0) % 8 == 0 and q.stride(1) % 8 == 0)
 
 
-def _launch(q, k, v, bias, mask, num_windows) -> torch.Tensor:
-    """Check the inputs, launch kernel A on the route :func:`plan` picks,
-    count the launch."""
+def _launch(q, k, v, bias, mask, num_windows, route: Optional[str] = None) -> torch.Tensor:
+    """Check the inputs, launch kernel A on the route :func:`plan` picks
+    (or ``route``), count the launch."""
     if mask is None:
         num_windows = 1
     _check_inputs(q, k, v, bias, mask, num_windows)
     bw, n, h, d = q.shape
-    p = plan(bw, n, h, d, num_windows, q.dtype, _aligned(q, k, v), _sm_count(q.device.index))
+    p = plan(bw, n, h, d, num_windows, q.dtype, _aligned(q, k, v), _sm_count(q.device.index),
+             route)
     if p["smem"] > SMEM_LIMIT:
         raise ValueError(f"window_mha: K and V of a window ({n} tokens, head dim {d}) do not fit "
                          "in shared memory")
@@ -172,9 +265,13 @@ def _launch(q, k, v, bias, mask, num_windows) -> torch.Tensor:
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), q.stride(0), q.stride(1),
             bias.data_ptr(), mask.data_ptr() if mask is not None else None, out.data_ptr(),
             bw, n, h, d, num_windows)
-    launch = (*p["grid"], p["smem"], q.device.index,
-              torch.cuda.current_stream(q.device).cuda_stream)
-    if p["route"] == "mma":
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    launch = (*p["grid"], p["smem"], q.device.index, stream)
+    if p["route"] == "wgmma":
+        err = lib.window_mha_fwd_wgmma(*args, d**-0.5 * math.log2(math.e), p["tiles_per_block"],
+                                       p["stages"], *p["grid"], p["threads"], p["smem"],
+                                       q.device.index, stream)
+    elif p["route"] == "mma":
         err = lib.window_mha_fwd_mma(*args, d**-0.5 * math.log2(math.e), p["threads"] // 32,
                                      p["tiles_per_block"], *launch)
     else:

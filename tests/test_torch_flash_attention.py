@@ -138,13 +138,34 @@ def test_kernel_takes_head_dims_up_to_256():
 
 # ---- route and launch plan ---------------------------------------------
 
+# (B, N, H, D) of kernel B's launches on the models' main paths, with the
+# route bf16 takes: the flagship's fusions (a serving chunk of 15 tiles, a
+# training micro-batch of 2) and the DualEncoders' attending levels (DE128
+# 2 tiles a chunk, 1 a micro-batch; the 4-modality model 4 a chunk).
+# wgmma from 2**20 query-key pairs, mma below.
+MODEL_SHAPES = [
+    ((15, 1728, 2, 96), "wgmma"), ((15, 216, 4, 96), "wgmma"), ((15, 27, 8, 96), "mma"),
+    ((2, 1728, 2, 96), "wgmma"), ((2, 216, 4, 96), "mma"), ((2, 27, 8, 96), "mma"),
+    ((2, 4096, 4, 64), "wgmma"), ((2, 512, 4, 128), "wgmma"),
+    ((1, 4096, 4, 64), "wgmma"), ((1, 512, 4, 128), "wgmma"),
+    ((4, 13824, 4, 32), "wgmma"), ((4, 1728, 4, 64), "wgmma"), ((4, 216, 4, 128), "mma"),
+]
+
 
 @pytest.mark.parametrize("tiles", [15, 2], ids=["serving_chunk", "training_micro_batch"])
 def test_every_flagship_bf16_shape_takes_the_mma_route(tiles):
+    """Every bf16 fusion of the flagship takes a tensor-core route: wgmma
+    (384 threads: two consumer warpgroups of 64 query rows and a producer
+    warpgroup) from ``WGMMA_MIN_PAIRS`` query-key pairs, mma (4 warps of 16
+    rows) below, as at the /32 fusion."""
     for stage, b, n, heads, d in chip_smoke.flash_shapes(tiles):
         p = tfa.plan(b, n, n, heads, d, torch.bfloat16)
-        assert p["route"] == "mma", (stage, b, n, heads, d)
-        assert p["threads"] == 128 and p["rows"] == 64  # 4 warps of 16 query rows
+        if b * heads * n * n >= tfa.WGMMA_MIN_PAIRS:
+            assert p["route"] == "wgmma", (stage, b, n, heads, d)
+            assert p["threads"] == 384 and p["rows"] == 128 and p["stages"] == 3
+        else:
+            assert p["route"] == "mma", (stage, b, n, heads, d)
+            assert p["threads"] == 128 and p["rows"] == 64
 
 
 @pytest.mark.parametrize("tiles", [15, 2], ids=["serving_chunk", "training_micro_batch"])
@@ -153,29 +174,55 @@ def test_f32_takes_the_f32_route(tiles):
         assert tfa.plan(b, n, n, heads, d, torch.float32)["route"] == "f32"
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape,route", MODEL_SHAPES,
+                         ids=["x".join(map(str, sh)) for sh, _ in MODEL_SHAPES])
+def test_plan_route_at_the_model_shapes(shape, route, dtype):
+    b, n, heads, d = shape
+    p = tfa.plan(b, n, n, heads, d, dtype)
+    assert p["route"] == (route if dtype == torch.bfloat16 else "f32")
+
+
 def test_plan_fits_shared_memory_for_every_head_dim():
-    """Both routes at every head dim the kernel takes: the tensor-core route
-    exactly for bf16 at multiples of 16 up to 128 and aligned inputs."""
+    """Every route at every head dim the kernel takes: the tensor-core routes
+    exactly for bf16 at multiples of 16 up to 128 and aligned inputs
+    (wgmma from ``WGMMA_MIN_PAIRS`` pairs, as 2 x 2 x 1000 x 300 are)."""
     for d in range(4, tfa.MAX_HEAD_DIM + 1, 4):
         for dtype in (torch.bfloat16, torch.float32):
             for aligned in (True, False):
-                p = tfa.plan(2, 100, 300, 2, d, dtype, aligned)
-                mma = dtype == torch.bfloat16 and d % 16 == 0 and d <= 128 and aligned
-                assert p["route"] == ("mma" if mma else "f32"), (d, dtype, aligned)
+                p = tfa.plan(2, 1000, 300, 2, d, dtype, aligned)
+                tc = dtype == torch.bfloat16 and d % 16 == 0 and d <= 128 and aligned
+                assert p["route"] == ("wgmma" if tc else "f32"), (d, dtype, aligned)
                 assert p["smem"] <= tfa.SMEM_LIMIT == 232_448, (d, p)
-    assert tfa.plan(15, 1728, 1728, 2, 96, torch.bfloat16)["smem"] == 53_248  # 4 blocks an SM
+                if tc:
+                    mma = tfa.plan(2, 1000, 300, 2, d, dtype, aligned, route="mma")
+                    assert mma["smem"] <= tfa.SMEM_LIMIT
+    assert tfa.plan(15, 1728, 1728, 2, 96, torch.bfloat16, route="mma")["smem"] == 53_248
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", range(16, 129, 16))
+def test_wgmma_ring_at_every_head_dim(d):
+    """The wgmma route's shared memory: a 128-row Q tile and a 3-stage ring
+    of K and V tiles of 128 keys, all bf16, and 7 mbarriers, in one block of
+    384 threads; at D = 128 it takes 229,560 of the 232,448 bytes."""
+    p = tfa.plan(2, 1000, 1000, 2, d, torch.bfloat16)
+    assert tfa.WGMMA_KEYS == 128 and p["stages"] == tfa.WGMMA_STAGES == 3
+    assert p["smem"] == 128 * d * 2 + 3 * 2 * 128 * d * 2 + 8 * 7 + 128 <= tfa.SMEM_LIMIT
+    assert p["threads"] == 384 and p["rows"] == 128
+
+
+@pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "wgmma"), (torch.bfloat16, "mma"),
+                                         (torch.float32, "f32")])
 @pytest.mark.parametrize("b,nq,heads", [(15, 1728, 2), (15, 216, 4), (15, 27, 8), (2, 129, 3),
                                         (1, 64, 1), (1, 1, 1)])
-def test_plan_grid_covers_every_query_row_once(b, nq, heads, dtype):
-    """By the kernels' index arithmetic: mma blocks are (query block, b*H),
-    f32 blocks (b*H, query block); each covers 64 query rows."""
-    p = tfa.plan(b, nq, 300, heads, 96, dtype)
+def test_plan_grid_covers_every_query_row_once(b, nq, heads, dtype, route):
+    """By the kernels' index arithmetic: wgmma blocks are (query block of
+    128, b*H), mma blocks (query block of 64, b*H), f32 blocks (b*H, query
+    block of 64)."""
+    p = tfa.plan(b, nq, 300, heads, 96, dtype, route=route)
     count = np.zeros((b * heads, nq), np.int64)
-    qb_axis = 0 if p["route"] == "mma" else 1
-    assert p["rows"] == 64
+    qb_axis = 1 if p["route"] == "f32" else 0
+    assert p["route"] == route and p["rows"] == (128 if route == "wgmma" else 64)
     assert p["grid"][1 - qb_axis] == b * heads
     assert p["grid"][qb_axis] == math.ceil(nq / p["rows"])
     for bh in range(b * heads):
@@ -187,3 +234,19 @@ def test_plan_grid_covers_every_query_row_once(b, nq, heads, dtype):
 def test_plan_refuses_a_grid_the_card_cannot_launch():
     with pytest.raises(ValueError, match="grid"):
         tfa.plan(70_000, 64, 64, 1, 16, torch.bfloat16)
+
+
+@pytest.mark.parametrize(
+    "args,route",
+    [
+        ((2, 100, 100, 2, 96, torch.float32), "wgmma"),  # f32 is no tensor-core type
+        ((2, 100, 100, 2, 96, torch.float32), "mma"),
+        ((2, 100, 100, 2, 24, torch.bfloat16), "wgmma"),  # no whole k16 step
+        ((2, 100, 100, 2, 144, torch.bfloat16), "mma"),  # past 128
+        ((2, 100, 100, 2, 96, torch.bfloat16, False), "wgmma"),  # unaligned
+        ((2, 100, 100, 2, 96, torch.bfloat16), "tma"),  # no such route
+    ],
+)
+def test_plan_refuses_a_route_that_does_not_take_the_call(args, route):
+    with pytest.raises(ValueError, match="route"):
+        tfa.plan(*args, route=route)

@@ -11,7 +11,6 @@ the multi-rank pass together and agree on each candidate.
 """
 
 import json
-import time
 
 import pytest
 import yaml
@@ -44,16 +43,36 @@ def tune_cfg(tmp_path):
     return cfg
 
 
+class _Clock:
+    """The tuner's clock (``tuner.time``) in the tests that make the parity
+    tier look slow: it reads only what the runner's calls add to it, so the
+    times the tuner measures are the same whatever the box's load."""
+
+    def __init__(self):
+        self.now = 0.0
+
+    def perf_counter(self):
+        return self.now
+
+
 def _runner_patch(monkeypatch, slow=None, fail=None):
-    """Make the parity tier look slow, or one chunk size fail."""
+    """Make the parity tier look slow, or one chunk size fail. ``slow``:
+    every runner call advances a fake clock by 1 s, a parity-tier call
+    (overlap >= 0.25) by 1 s + its overlap more, and by 0.01 s a tile of its
+    chunk, so that no two candidates tie."""
     orig = SW.SlidingWindowRunner
+    clock = _Clock()
+    if slow:
+        monkeypatch.setattr(tuner, "time", clock)
 
     class Patched(orig):
         def __call__(self, volume, params=None):
             if fail is not None and self.sw_batch_size == fail:
                 raise RuntimeError("CUDA out of memory")
-            if slow and self.overlap >= 0.25:
-                time.sleep(0.1)
+            if slow:
+                clock.now += 1.0 + 0.01 * self.sw_batch_size
+                if self.overlap >= 0.25:
+                    clock.now += 1.0 + self.overlap
             return orig.__call__(self, volume, params)
 
     monkeypatch.setattr(SW, "SlidingWindowRunner", Patched)

@@ -136,10 +136,15 @@ def test_kernel_input_checks(change, error):
 
 @pytest.mark.parametrize("tiles", [15, 2], ids=["serving_chunk", "training_micro_batch"])
 def test_every_flagship_bf16_shape_takes_the_mma_route(tiles):
+    """Every bf16 launch of the flagship takes a tensor-core route: wgmma,
+    one block of two consumer warpgroups and a producer warpgroup a (head,
+    window position), all 256 rows (four 64-row tiles) of a 216-token
+    window, a ring of 3 stages."""
     for stage, bw, heads, nw, _, w in chip_smoke.window_shapes(tiles):
         p = twa.plan(bw, w**3, heads, 16, nw or 1, torch.bfloat16)
-        assert p["route"] == "mma", (stage, bw, heads, nw)
-        assert p["threads"] == 224 and p["rows"] == 112  # 2 blocks of 7 warps cover N = 216
+        assert p["route"] == "wgmma", (stage, bw, heads, nw)
+        assert p["threads"] == 384 and p["rows"] == 256 and p["stages"] == 3
+        assert p["grid"][0] == heads * (nw or 1)
 
 
 @pytest.mark.parametrize("tiles", [15, 2], ids=["serving_chunk", "training_micro_batch"])
@@ -158,26 +163,57 @@ def test_bf16_off_the_mma_rule_takes_the_f32_route(d, aligned):
 
 @pytest.mark.parametrize("d", twa.MMA_HEAD_DIMS)
 def test_mma_plan_fits_shared_memory_for_every_window_size(d):
-    """Every N from 1 to MAX_TOKENS gets an mma plan at D = 16 (the model's
-    head dim) within the 232,448 bytes a block can have; at wider heads a
-    window whose K and V alone overflow goes to the f32 route instead."""
+    """Every N from 1 to MAX_TOKENS gets a tensor-core plan at D = 16 (the
+    model's head dim) within the 232,448 bytes a block can have: wgmma up
+    to 256 tokens wherever one ring stage fits beside the staged bias, mma
+    beyond; at wider heads a window whose K and V alone overflow goes to the
+    f32 route instead."""
     for n in range(1, twa.MAX_TOKENS + 1):
         p = twa.plan(4, n, 3, d, 2, torch.bfloat16)
-        if p["route"] == "mma":
+        if p["route"] != "f32":
             assert p["smem"] <= twa.SMEM_LIMIT == 232_448, n
+        if p["route"] == "wgmma":
+            assert n <= twa.WGMMA_MAX_TOKENS and 1 <= p["stages"] <= 3
+            assert p["rows"] == 64 * math.ceil(n / 64)
+        elif p["route"] == "mma":
+            assert n > twa.WGMMA_MAX_TOKENS or twa.wgmma_smem(n, d, 1) > twa.SMEM_LIMIT, n
             assert p["rows"] == 16 * (p["threads"] // 32) and 1 <= p["threads"] // 32 <= 8
             assert p["rows"] <= 16 * math.ceil(n / 16)
         else:
             assert d > 16, n
-    assert twa.plan(4, 216, 3, 16, 2, torch.bfloat16)["smem"] == 105_728  # 2 blocks an SM
+    assert twa.plan(4, 216, 3, 16, 2, torch.bfloat16)["smem"] == 164_528  # one block an SM
+    assert twa.mma_plan(4, 216, 3, 16, 2)["smem"] == 105_728  # 2 blocks an SM
     assert twa.plan(4, 343, 3, 16, 2, torch.bfloat16)["rows"] == 128
     assert twa.plan(4, 512, 3, 16, 2, torch.bfloat16)["rows"] == 112
 
 
+@pytest.mark.parametrize("n,stages", [(27, (3, 3, 3, 3)), (64, (3, 3, 3, 3)),
+                                      (125, (3, 3, 3, 3)), (216, (3, 3, 2, 1)),
+                                      (256, (3, 1, 1, None))])
+def test_wgmma_ring_stages_by_head_dim(n, stages):
+    """The ring holds as many stages (at most 3) as fit beside the staged
+    bias: at N = 216 the flagship's D = 16 keeps 3, D = 64 one; at N = 256
+    and D = 64 not even one fits, and the window takes mma."""
+    for d, want in zip(twa.MMA_HEAD_DIMS, stages):
+        p = twa.plan(8, n, 2, d, 4, torch.bfloat16)
+        lay = twa.wgmma_layout(n, d)
+        if want is None:
+            assert p["route"] == "mma"
+            continue
+        assert p["route"] == "wgmma" and p["stages"] == want, (n, d, p)
+        assert p["smem"] == twa.wgmma_smem(n, d, want) <= twa.SMEM_LIMIT
+        assert twa.wgmma_smem(n, d, want + 1) > twa.SMEM_LIMIT or want == 3
+        # the score columns cover the window; K/V rows are whole k16 steps
+        assert n <= 8 * lay["key_tiles"] <= lay["kpad"] <= 256 and lay["kpad"] % 16 == 0
+        assert lay["qpad"] % 64 == 0 and n <= lay["qpad"] <= 256
+
+
 def _coverage(p, bw, n, heads, num_windows):
     """How often the plan's blocks compute each output (window bw, row i,
-    head h), by the kernel's own index arithmetic: block x = (row block,
-    head, window) with the row block fastest, block y = group of tiles."""
+    head h), by the kernel's own index arithmetic. wgmma: block x = (head,
+    window) with the head fastest, every row; mma: block x = (row block,
+    head, window) with the row block fastest; both: block y = group of
+    tiles."""
     batch = bw // num_windows
     count = np.zeros((bw, n, heads), np.int64)
     if p["route"] == "f32":
@@ -186,7 +222,8 @@ def _coverage(p, bw, n, heads, num_windows):
             b, w = t % batch, t // batch
             count[b * num_windows + w, :, h] += 1
         return count
-    rows, tiles = p["rows"], p["tiles_per_block"]
+    tiles = p["tiles_per_block"]
+    rows = n if p["route"] == "wgmma" else p["rows"]
     row_blocks = math.ceil(n / rows)
     for bx in range(p["grid"][0]):
         rb, h, w = bx % row_blocks, (bx // row_blocks) % heads, bx // row_blocks // heads
@@ -206,23 +243,63 @@ def _coverage(p, bw, n, heads, num_windows):
         (15, 216, 24, 1),  # stage 3: few windows, the tiles split into groups
         (128, 216, 6, 64),  # stage 1 of a training micro-batch
         (16, 27, 3, 8),  # 3³ windows
-        (16, 343, 3, 8),  # the 7³ envelope
+        (16, 343, 3, 8),  # the 7³ envelope (mma)
         (8, 343, 3, 8),  # one tile
-        (6, 512, 2, 3),  # the largest window: 5 row blocks of 112
+        (6, 512, 2, 3),  # the largest window: 5 row blocks of 112 (mma)
         (5, 17, 1, 5),  # odd sizes
     ],
 )
 def test_plan_grid_covers_every_output_once(bw, n, heads, nw, dtype):
     p = twa.plan(bw, n, heads, 16, nw, dtype)
-    assert p["route"] == ("mma" if dtype == torch.bfloat16 else "f32")
+    want = "f32" if dtype == torch.float32 else ("wgmma" if n <= 256 else "mma")
+    assert p["route"] == want
     assert (_coverage(p, bw, n, heads, nw) == 1).all()
 
 
 def test_plan_fills_the_card_when_windows_are_few():
     """Stage 3 of a serving chunk is 24 heads x 1 window: the 15 tiles are
-    cut into groups so the grid gives each SM two blocks."""
+    cut into groups so that the grid's one wave of blocks (one a block an
+    SM) finishes within a tile of the ideal 24 x 15 / 132 tiles an SM; a
+    shifted stage-0 block walks the chunk's 15 tiles."""
     p = twa.plan(15, 216, 24, 16, 1, torch.bfloat16)
-    assert p["grid"][0] * p["grid"][1] >= 2 * twa.SM_COUNT
+    blocks = p["grid"][0] * p["grid"][1]
     assert p["tiles_per_block"] * p["grid"][1] >= 15
+    waves = math.ceil(blocks / twa.SM_COUNT)
+    assert waves * p["tiles_per_block"] <= 24 * 15 / twa.SM_COUNT + 1
     shifted = twa.plan(7680, 216, 3, 16, 512, torch.bfloat16)
-    assert shifted["tiles_per_block"] == 15 and shifted["grid"] == (2 * 3 * 512, 1)
+    assert shifted["tiles_per_block"] == 15 and shifted["grid"] == (3 * 512, 1)
+
+
+@pytest.mark.parametrize("stage", [2, 3])
+@pytest.mark.parametrize("shifted", [False, True])
+def test_wgmma_walk_fills_the_card_at_the_late_stages(stage, shifted):
+    """Stages 2 and 3 of a serving chunk have few (head, window) blocks (12
+    to 96): the walk is cut so that every SM's load, in tiles, is within
+    ``WGMMA_STAGING`` + 1 tiles of the chunk's tiles spread evenly over 132
+    SMs, and no block walks more than ``WGMMA_MAX_WALK`` tiles."""
+    for st, bw, heads, nw, _, w in chip_smoke.window_shapes(15):
+        if st != stage or (nw is not None) != shifted:
+            continue
+        nw = nw or 1
+        p = twa.plan(bw, w**3, heads, 16, nw, torch.bfloat16)
+        batch, t = bw // nw, p["tiles_per_block"]
+        assert p["grid"][1] == math.ceil(batch / t) and t <= twa.WGMMA_MAX_WALK
+        waves = math.ceil(p["grid"][0] * p["grid"][1] / twa.SM_COUNT)
+        ideal = bw * heads / twa.SM_COUNT
+        assert waves * (t + twa.WGMMA_STAGING) <= ideal + twa.WGMMA_STAGING + 1 + t, (st, p)
+
+
+@pytest.mark.parametrize(
+    "args,route",
+    [
+        ((8, 343, 3, 16, 8, torch.bfloat16), "wgmma"),  # past 256 tokens
+        ((8, 256, 2, 64, 8, torch.bfloat16), "wgmma"),  # no ring stage fits
+        ((8, 216, 3, 16, 8, torch.float32), "wgmma"),  # f32 is no tensor-core type
+        ((8, 216, 3, 16, 8, torch.float32), "mma"),
+        ((8, 216, 3, 24, 8, torch.bfloat16), "mma"),  # no whole k16 step
+        ((8, 216, 3, 16, 8, torch.bfloat16), "tma"),  # no such route
+    ],
+)
+def test_plan_refuses_a_route_that_does_not_take_the_call(args, route):
+    with pytest.raises(ValueError, match="route"):
+        twa.plan(*args, route=route)
